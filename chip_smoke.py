@@ -11,9 +11,18 @@ Phases, each printing one JSON line:
              shapes; times by CUDA events (median after a warm-up)
   main_path  stage-3 paired inference at the full width of confs/LOL.yml
              (bf16, 620x420, dcn_impl pallas / clamp 2, seeded random weights):
-             three single-image requests and one batch of two through
+             two single-image requests and one batch of two through
              VQLLFLOWDModel.get_sr; launch counters per call; a stage-wise
              comparison of the kernel path against the plain-version path
+  hybrid_path  the same model with dcn_impl hybrid (the DCN cascade): a request
+             that overflows the cascade's capacity goes through the CLI's
+             re-dispatch loop, exact requests are held against an exact ('xla')
+             model with the same weights, then auto_configure_dcn audits a
+             two-image batch and one request runs under what it chose
+  stage2_path  stage-2 inference at the full width of confs/train_stage2_LOL.yml
+             (bf16, 600x400): LLFlowModel.get_sr -> decode_latent, the same
+             stage-wise comparison
+Every path is driven with the launch counts set to 0 just before and read just after.
 Then the contract lines: {"kernels": [...]}, the card line, and last
 {"ok": true, "device": {...}}. Any failure raises: non-zero exit, no last line.
 
@@ -332,8 +341,111 @@ def check_dcn():
             "by_shape": timed, "cases": cases}
 
 
+def _cascade_offsets(rng, field, B, H, W, G):
+    """Seeded offset fields for the cascade at R=2, R_tail=8:
+    'bands'  in band (|d| <= 2) but for three bands of five rows, which reach
+             7.5 px: at most six 8-row blocks, fewer than the 8 slots;
+    'wide'   up to 7.5 px everywhere: every block is out of band, most overflow;
+    'beyond' as 'bands', and 12 px spread: taps beyond R_tail, everywhere."""
+    base = np.clip(1.0 * rng.standard_normal((B, H, W, G, 9, 2)), -2, 2)
+    wide = np.clip(3.0 * rng.standard_normal((B, H, W, G, 9, 2)), -7.5, 7.5)
+    if field == "bands":
+        off = base
+        for r0 in (H // 7, H // 2, H - 9):
+            off[:, r0:r0 + 5] = wide[:, r0:r0 + 5]
+    elif field == "wide":
+        off = wide
+    else:
+        off = 12.0 * rng.standard_normal((B, H, W, G, 9, 2))
+    return dev(off.astype(np.float32))
+
+
+def check_dcn_cascade():
+    """dcn_cascade_fwd vs modulated_deform_conv_cascade_ref on the card, at the
+    two shapes the hybrid path gives it, bf16 and float32, R=2, R_tail=8,
+    capacity 0.125. Outputs within check_dcn's tolerance, both counters exact."""
+    rng = np.random.default_rng(4)
+    kw = dict(max_offset=2, tail_offset=8, capacity_frac=0.125)
+    cases, timed = {}, {}
+    worst_main = 0.0
+    shapes = [("warp_0", 1, H_IN // 2, W_IN // 2, 256, 4, 256), ("warp_1", 1, H_IN, W_IN, 128, 4, 128)]
+    for (wname, B, H, W, C, G, O) in shapes:
+        for dt in (torch.bfloat16, torch.float32):
+            x, _, mask, wgt, bias = _dcn_inputs(rng, B, H, W, C, G, O, dt, 1.0)
+            for field in ("bands", "wide", "beyond"):
+                tag = f"{wname} {str(dt).split('.')[-1]} {field}"
+                off = _cascade_offsets(rng, field, B, H, W, G)
+                a = (x, off, mask, wgt, bias)
+                before = counters()
+                got, ov = dcn_ops.modulated_deform_conv_cascade_cuda(*a, return_overflow=True, **kw)
+                torch.cuda.synchronize()
+                require(moved_since(before) == {"vq_argmin": 0, "attn_fused": 0, "dcn_fwd": 0,
+                                                "dcn_cascade": 1}, f"cascade {tag}: counters")
+                want, wov = dcn_ops.modulated_deform_conv_cascade_ref(*a, return_overflow=True, **kw)
+                require(got.shape == want.shape and got.dtype == dt, f"cascade {tag}: bad output")
+                require(bool(torch.isfinite(got.float()).all()), f"cascade {tag}: non-finite")
+                require(ov.tolist() == wov.tolist(), f"cascade {tag}: counters {ov.tolist()} != "
+                                                     f"plain version's {wov.tolist()}")
+                err = float((got.float() - want.float()).abs().max())
+                ref_max = float(want.float().abs().max())
+                tol = 2.0 ** -7 * max(ref_max, 1.0) if dt == torch.bfloat16 else 2e-4
+                require(err <= tol, f"cascade {tag}: {err} > {tol}")
+                row_sel, _ = dcn_ops.cascade_selection(off, **kw)
+                case = {"max_abs_err": err, "tol": tol, "overflow": ov.tolist(),
+                        "rows_at_tail_radius": int(row_sel.sum()), "rows": B * H}
+                if field == "bands":
+                    # both counters zero <=> exact DCNv2: also equal to the exact kernel
+                    require(ov.tolist() == [0, 0], f"cascade {tag}: {ov.tolist()} != [0, 0]")
+                    exact = dcn_ops.modulated_deform_conv_cuda(*a, max_offset=None)
+                    e2 = float((got.float() - exact.float()).abs().max())
+                    case["vs_exact_kernel"] = e2
+                    require(e2 <= tol, f"cascade {tag} vs exact kernel: {e2} > {tol}")
+                    require(0 < case["rows_at_tail_radius"] < B * H, f"cascade {tag}: selection")
+                elif field == "wide":
+                    # blocks that found no slot keep the clamp-R kernel's output, bit for bit
+                    require(ov[0].item() > 0 and ov[1].item() == 0, f"cascade {tag}: {ov.tolist()}")
+                    clamped = dcn_ops.modulated_deform_conv_cuda(*a, max_offset=2)
+                    keep = ~row_sel
+                    require(bool(torch.equal(got[keep], clamped[keep])),
+                            f"cascade {tag}: overflowed blocks differ from the clamp-R kernel")
+                    require(not bool(torch.equal(got[row_sel], clamped[row_sel])),
+                            f"cascade {tag}: selected blocks were not recomputed")
+                else:
+                    require(ov[1].item() > 0, f"cascade {tag}: no tap beyond R_tail counted")
+                cases[tag] = case
+                if dt == torch.bfloat16 and field == "bands":
+                    worst_main = max(worst_main, err)
+                    ms = time_ms(lambda: dcn_ops.modulated_deform_conv_cascade_cuda(
+                        *a, return_overflow=True, **kw))
+                    sel_ms = time_ms(lambda: dcn_ops.cascade_selection(off, **kw))
+                    plain = time_ms(lambda: dcn_ops.modulated_deform_conv_cascade_ref(
+                        *a, return_overflow=True, **kw), reps=3, warmup=1)
+                    es = x.element_size()
+                    P = B * H * W
+                    nbytes = P * C * es + P * G * 9 * 3 * 4 + 9 * C * O * 4 + O * 4 + P * O * es
+                    b_ms, b_by = bound(2.0 * P * 9 * C * O, PEAK_BF16, nbytes)
+                    timed[wname] = {"ms": ms, "selection_ms": sel_ms, "plain_ms": plain,
+                                    "bound_ms": b_ms, "bound_by": b_by,
+                                    "achieved_tflops": 2.0 * P * 9 * C * O / ms / 1e9}
+                del off, got, want
+            del x, mask, wgt, bias
+            torch.cuda.empty_cache()
+    mean = lambda key: sum(t[key] for t in timed.values()) / len(timed)  # noqa: E731
+    by = max(timed.values(), key=lambda t: t["bound_ms"])["bound_by"]
+    return {"name": "dcn_cascade", "route": "cuda", "source": "glare_tpu_torch/csrc/dcn_fwd.cu",
+            "replaces": "glare_tpu/ops/dcn_pallas.py:448", "max_abs_err": worst_main,
+            "tol": "bf16: 2^-7 * max(1, max|ref|); f32: 2e-4; both overflow counters exact",
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+            "bound_by": by, "library_ms": None,
+            "note": "ms: the whole wrapper (block selection in torch ops + one launch of "
+                    "dcn_cascade_fwd), mean per call over the two shapes one hybrid get_sr gives "
+                    "it; bound: one pass's work (input, offsets, mask, weight read once, output "
+                    "written once; 2*P*9*C*O FLOP)",
+            "by_shape": timed, "cases": cases}
+
+
 def phase_kernels():
-    ks = [check_vq(), check_attn(), check_dcn()]
+    ks = [check_vq(), check_attn(), check_dcn(), check_dcn_cascade()]
     emit({"phase": "kernels", "kernels": [
         {"name": k["name"], "max_err": k["max_abs_err"], "tol": k["tol"], "kernel_ms": k["ms"],
          "plain_ms": k["plain_ms"], "library_ms": k["library_ms"], "cases": k["cases"],
@@ -363,40 +475,49 @@ def lol_opt():
     }
 
 
-def seeded_image(seed, batch=1):
+def seeded_image(seed, batch=1, h=H_IN, w=W_IN):
     """Low-light-looking image in the log domain, as the CLI feeds the model."""
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:H_IN, 0:W_IN].astype(np.float32)
-    img = np.empty((batch, H_IN, W_IN, 3), np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.empty((batch, h, w, 3), np.float32)
     for b in range(batch):
         base = 0.04 + 0.03 * np.sin(xx / (37.0 + b) + seed) * np.cos(yy / 53.0)
         for c in range(3):
-            img[b, ..., c] = base * (1.0 + 0.2 * c) + 0.01 * rng.standard_normal((H_IN, W_IN))
+            img[b, ..., c] = base * (1.0 + 0.2 * c) + 0.01 * rng.standard_normal((h, w))
     img = np.clip(img, 0.0, 1.0)
     return np.log(np.clip(img + 1e-3, 1e-3, None)).astype(np.float32)
 
 
 def counters():
-    return {"vq_argmin": vq_ops.launches, "attn_fused": attn_ops.launches, "dcn_fwd": dcn_ops.launches}
+    return {"vq_argmin": vq_ops.launches, "attn_fused": attn_ops.launches,
+            "dcn_fwd": dcn_ops.launches, "dcn_cascade": dcn_ops.cascade_launches}
 
 
 def reset_counters():
-    vq_ops.launches = attn_ops.launches = dcn_ops.launches = 0
+    vq_ops.launches = attn_ops.launches = dcn_ops.launches = dcn_ops.cascade_launches = 0
+
+
+def moved_since(before):
+    now = counters()
+    return {k: now[k] - before[k] for k in before}
 
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the three kernel-bearing functions to their plain PyTorch versions
+    """Route the kernel-bearing functions to their plain PyTorch versions
     (for the comparison only; the port itself has no such switch)."""
-    saved = (vq_ops.nearest_code, attn_ops.flash_attention_nhc, dcn_ops.modulated_deform_conv)
+    saved = (vq_ops.nearest_code, attn_ops.flash_attention_nhc, dcn_ops.modulated_deform_conv,
+             dcn_ops.modulated_deform_conv_cascade)
     vq_ops.nearest_code = vq_ops.nearest_code_ref
     attn_ops.flash_attention_nhc = lambda q, k, v, n_true=None, pipeline=False: \
         attn_ops.flash_attention_nhc_ref(q, k, v, n_true=n_true)
     dcn_ops.modulated_deform_conv = dcn_ops.modulated_deform_conv_ref
+    dcn_ops.modulated_deform_conv_cascade = dcn_ops.modulated_deform_conv_cascade_ref
     try:
         yield
     finally:
-        vq_ops.nearest_code, attn_ops.flash_attention_nhc, dcn_ops.modulated_deform_conv = saved
+        (vq_ops.nearest_code, attn_ops.flash_attention_nhc, dcn_ops.modulated_deform_conv,
+         dcn_ops.modulated_deform_conv_cascade) = saved
 
 
 def sync_ms(fn):
@@ -407,6 +528,47 @@ def sync_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def stage_cmp(kern, plain, f32):
+    """Distances of one stage's output, three ways on the same inputs: bf16 through
+    the kernels, bf16 through the plain versions, float32 through the plain
+    versions. RMS, as a share of the float32 output's own RMS."""
+    kern, plain, f32 = kern.double(), plain.double(), f32.double()
+    ref_rms = max(float((f32 ** 2).mean().sqrt()), 1e-30)
+    rel = lambda a, b: float(((a - b) ** 2).mean().sqrt()) / ref_rms  # noqa: E731
+    return {"ref_rms": ref_rms, "ref_max": float(f32.abs().max()),
+            "kernel_vs_f32": rel(kern, f32), "plain_vs_f32": rel(plain, f32),
+            "kernel_vs_plain": rel(kern, plain),
+            "kernel_vs_plain_max_abs": float((kern - plain).abs().max())}
+
+
+def require_stages(stages):
+    """Tolerance: the two bf16 runs differ only inside the kernels (last-bit
+    flips), but attention blocks, group norms and convolutions in bf16 follow
+    and spread them, so their distance from each other says little. What a
+    right kernel guarantees is that its run is no farther from the float32 run
+    than the plain bf16 run is, up to noise; a wrong kernel adds an error of
+    the order of the values themselves. Distances are RMS, as a share of the
+    float32 stage's own RMS (not of its peak, which one outlier can inflate)."""
+    for name, c in stages.items():
+        require(math.isfinite(c["kernel_vs_f32"]), f"stage {name}: non-finite")
+        limit = STAGE_RATIO * c["plain_vs_f32"] + STAGE_ABS_SLACK
+        require(c["kernel_vs_f32"] <= limit,
+                f"stage {name}: the kernel run is {c['kernel_vs_f32']:.3e} (relative RMS) from "
+                f"the float32 run, the plain bf16 run {c['plain_vs_f32']:.3e}; limit {limit:.3e}")
+
+
+def index_flips(model, latent_nchw, idx_kernel, idx_plain):
+    """Both quantizers got the same latent, so an index may differ only between
+    codes whose float64 distances to the token agree to 1e-6 relative (the rule
+    of check_vq). -> (number of differing indices, their worst relative gap)."""
+    z_np = latent_nchw.float().permute(0, 2, 3, 1).reshape(-1, latent_nchw.shape[1]).cpu().numpy()
+    e_np = model.net_hq.quantize.embedding.weight.detach().float().cpu().numpy()
+    rel_gap, _, flips = vq_gap(z_np, e_np, idx_kernel.cpu().numpy(), idx_plain.cpu().numpy())
+    require(rel_gap <= 1e-6, f"{flips} codebook indices differ between kernel and plain version, "
+                             f"one by {rel_gap:.3e} (relative) in true distance")
+    return flips, rel_gap
+
+
 def phase_main_path():
     from glare_tpu_torch.models import create_model
     from glare_tpu_torch.models.vqllflowd_model import temper_offset_heads
@@ -415,7 +577,7 @@ def phase_main_path():
     model = create_model(lol_opt(), device="cuda")
     temper_offset_heads(model.netG, seed=7, std=0.02)
     build_s = time.time() - t0
-    expected = {"vq_argmin": 1, "attn_fused": 11, "dcn_fwd": 2}
+    expected = {"vq_argmin": 1, "attn_fused": 11, "dcn_fwd": 2, "dcn_cascade": 0}
 
     # warm-up request (cuDNN autotuning, allocator), not counted
     model.get_sr(dev(seeded_image(99)))
@@ -423,14 +585,12 @@ def phase_main_path():
 
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
-    path_counts = counters()
     calls = []
-    last = None
-    for seed, batch in [(0, 1), (1, 1), (2, 1), (3, 2)]:
+    for seed, batch in [(0, 1), (1, 1), (3, 2)]:
         lq = dev(seeded_image(seed, batch))
         before = counters()
         sr, ms = sync_ms(lambda: model.get_sr(lq))
-        moved = {k: counters()[k] - before[k] for k in before}
+        moved = moved_since(before)
         require(tuple(sr.shape) == (batch, H_IN, W_IN, 3) and sr.dtype == torch.float32,
                 f"get_sr output {tuple(sr.shape)} {sr.dtype}")
         require(bool(torch.isfinite(sr).all()), "get_sr output is not finite")
@@ -438,11 +598,10 @@ def phase_main_path():
         calls.append({"seed": seed, "batch": batch, "ms": ms, "ms_per_image": ms / batch,
                       "launches": moved, "out_mean": float(sr.mean()), "out_std": float(sr.std()),
                       "dcn_overflow": model.last_dcn_overflow()})
-        last = (lq, sr)
-    path_counts = {k: counters()[k] - path_counts[k] for k in path_counts}
+    path_counts = counters()
     peak_mem = torch.cuda.max_memory_allocated()
-    for k, n in path_counts.items():
-        require(n > 0, f"kernel {k} was never launched on the main path")
+    for k, n in expected.items():
+        require(n == 0 or path_counts[k] > 0, f"kernel {k} was never launched on the main path")
 
     # per-stage times (one image) and the stage-wise comparison against the same
     # model run with the plain versions, and against a float32 model of the same
@@ -474,48 +633,18 @@ def phase_main_path():
             torch.cuda.synchronize()
             require(counters() == before, "the plain-version run launched a kernel")
 
-    def cmp(kern, plain, f32):
-        kern, plain, f32 = kern.double(), plain.double(), f32.double()
-        ref_rms = max(float((f32 ** 2).mean().sqrt()), 1e-30)
-        rel = lambda a, b: float(((a - b) ** 2).mean().sqrt()) / ref_rms  # noqa: E731
-        return {"ref_rms": ref_rms, "ref_max": float(f32.abs().max()),
-                "kernel_vs_f32": rel(kern, f32), "plain_vs_f32": rel(plain, f32),
-                "kernel_vs_plain": rel(kern, plain),
-                "kernel_vs_plain_max_abs": float((kern - plain).abs().max())}
-
     stages = {
-        "latent_half.x": cmp(x, x_p, x_f),
-        "latent_half.cond_feat": cmp(lr_enc["cond_feat"], lr_enc_p["cond_feat"], lr_enc_f["cond_feat"]),
-        "vq_decode.dec": cmp(dec, dec_p, dec_f),
-        "vq_decode.tap0": cmp(code_out[0], code_out_p[0], code_out_f[0]),
-        "vq_decode.tap1": cmp(code_out[1], code_out_p[1], code_out_f[1]),
-        "aft_half.rec": cmp(rec, rec_p, rec_f),
+        "latent_half.x": stage_cmp(x, x_p, x_f),
+        "latent_half.cond_feat": stage_cmp(lr_enc["cond_feat"], lr_enc_p["cond_feat"], lr_enc_f["cond_feat"]),
+        "vq_decode.dec": stage_cmp(dec, dec_p, dec_f),
+        "vq_decode.tap0": stage_cmp(code_out[0], code_out_p[0], code_out_f[0]),
+        "vq_decode.tap1": stage_cmp(code_out[1], code_out_p[1], code_out_f[1]),
+        "aft_half.rec": stage_cmp(rec, rec_p, rec_f),
     }
-    # Tolerance: the two bf16 runs differ only inside the kernels (last-bit
-    # flips), but 3-4 attention blocks, group norms and convolutions in bf16
-    # follow and spread them, so their distance from each other says little.
-    # What a right kernel guarantees is that its run is no farther from the
-    # float32 run than the plain bf16 run is, up to noise; a wrong kernel adds
-    # an error of the order of the values themselves. Distances are RMS, as a
-    # share of the float32 stage's own RMS (not of its peak, which one outlier
-    # can inflate).
-    for name, c in stages.items():
-        require(math.isfinite(c["kernel_vs_f32"]), f"stage {name}: non-finite")
-        limit = STAGE_RATIO * c["plain_vs_f32"] + STAGE_ABS_SLACK
-        require(c["kernel_vs_f32"] <= limit,
-                f"stage {name}: the kernel run is {c['kernel_vs_f32']:.3e} (relative RMS) from "
-                f"the float32 run, the plain bf16 run {c['plain_vs_f32']:.3e}; limit {limit:.3e}")
+    require_stages(stages)
     require(bool((idx_f == idx_p).all()), "float32 and bf16 models disagree on codebook indices "
             "for the same latent: their codebooks differ")
-    # Both quantizers get the same latent, so an index may differ only between
-    # codes whose float64 distances to the token agree to 1e-6 relative (the
-    # rule of check_vq).
-    z_np = x.float().permute(0, 2, 3, 1).reshape(-1, x.shape[1]).cpu().numpy()
-    e_np = model.net_hq.quantize.embedding.weight.detach().float().cpu().numpy()
-    flip_rel_gap, _, flips = vq_gap(z_np, e_np, idx_k.cpu().numpy(), idx_p.cpu().numpy())
-    require(flip_rel_gap <= 1e-6,
-            f"{flips} codebook indices differ between kernel and plain version, one by "
-            f"{flip_rel_gap:.3e} (relative) in true distance")
+    flips, flip_rel_gap = index_flips(model, x, idx_k, idx_p)
     emit({"phase": "main_path", "config": "confs/LOL.yml widths, bf16, dcn_impl=pallas R=2",
           "input": [H_IN, W_IN], "model_build_s": round(build_s, 2), "calls": calls,
           "launches_total": path_counts, "expected_per_call": expected,
@@ -525,6 +654,220 @@ def phase_main_path():
           "dcn_shapes": model.netG.deformable_decoder.last_dcn_shapes(),
           "max_memory_allocated": peak_mem})
     return path_counts, model
+
+
+@contextlib.contextmanager
+def counted_get_sr(model):
+    """Counts the calls of ``model.get_sr`` made inside the block -> a one-item list."""
+    n_calls, plain_get_sr = [0], model.get_sr
+
+    def get_sr(*a, **k):
+        n_calls[0] += 1
+        return plain_get_sr(*a, **k)
+
+    model.get_sr = get_sr
+    try:
+        yield n_calls
+    finally:
+        del model.get_sr
+
+
+def _stage3_opt(dcn_impl, dtype="bfloat16"):
+    opt = lol_opt()
+    opt["inference_dtype"] = dtype
+    opt["network_G"]["dcn_impl"] = dcn_impl
+    return opt
+
+
+def phase_hybrid_path():
+    """dcn_impl hybrid at the full confs/LOL.yml width, 620x420, bf16."""
+    from glare_tpu_torch.cli.infer_paired import enhance_exact
+    from glare_tpu_torch.models import create_model
+    from glare_tpu_torch.models.vqllflowd_model import temper_offset_heads
+
+    def build(dcn_impl, dtype="bfloat16"):
+        m = create_model(_stage3_opt(dcn_impl, dtype), device="cuda")
+        # the same weights in every model; heads a little tamer than the main path's,
+        # so that the widest tap stays well inside the 15 px that the dispatch can serve
+        temper_offset_heads(m.netG, seed=7, std=0.015)
+        return m
+
+    model = build("hybrid")          # conf defaults: R 2, R_tail 8, capacity 0.125
+    per_call = {"vq_argmin": 1, "attn_fused": 11, "dcn_fwd": 0, "dcn_cascade": 2}
+    model.get_sr(dev(seeded_image(99)))   # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_counters()
+
+    # request 1 through the CLI's loop: the seeded heads put a tap beyond 2 px into
+    # every row block, so capacity 0.125 overflows and the loop has to raise it
+    lq0 = dev(seeded_image(20))
+    before = counters()
+    with counted_get_sr(model) as n_calls:
+        model.get_sr(lq0)
+        first = model.last_dcn_overflow()
+        require(first["overflow_blocks"] > 0,
+                f"request 1 was meant to overflow the capacity: {first}")
+        (sr0, ov0), loop_ms = sync_ms(lambda: enhance_exact(model, lq0, tag="request 1"))
+    moved = moved_since(before)
+    require(moved == {k: v * n_calls[0] for k, v in per_call.items()},
+            f"launches over {n_calls[0]} get_sr calls: {moved}")
+    require(n_calls[0] >= 3, "the loop did not re-dispatch")
+    loop = {"first_overflow": first, "get_sr_calls": n_calls[0], "final_overflow": ov0,
+            "loop_ms": loop_ms, "capacity_after": model.netG.dcn_hybrid_capacity,
+            "tail_after": model.netG.dcn_hybrid_tail_offset}
+    require(ov0 == {"overflow_blocks": 0, "taps_beyond_tail": 0},
+            f"the loop ended with a warning, not exact: {loop}")
+
+    # requests 2, 3 under the configuration the loop left: exact, 2 cascade launches each
+    calls = []
+    for seed, batch in [(21, 1), (22, 1)]:
+        lq = dev(seeded_image(seed, batch))
+        before = counters()
+        sr, ms = sync_ms(lambda: model.get_sr(lq))
+        moved = moved_since(before)
+        require(tuple(sr.shape) == (batch, H_IN, W_IN, 3) and bool(torch.isfinite(sr).all()),
+                "hybrid get_sr output")
+        require(moved == per_call, f"launches per hybrid get_sr {moved} != {per_call}")
+        ov = model.last_dcn_overflow()
+        calls.append({"seed": seed, "ms": ms, "launches": moved, "dcn_overflow": ov})
+        require(ov == {"overflow_blocks": 0, "taps_beyond_tail": 0}, f"request not exact: {ov}")
+    path_counts = counters()
+    for k, n in per_call.items():
+        require(n == 0 or path_counts[k] > 0, f"kernel {k} was never launched on the hybrid path")
+
+    # the exact request against an exact ('xla') model with the same weights
+    model_x, model_x32 = build("xla"), build("xla", "float32")
+    lq = dev(seeded_image(22))
+    sr_x = model_x.get_sr(lq)
+    whole = {"max_abs_diff_vs_xla_kernel_path": float((sr - sr_x).abs().max()),
+             "out_max": float(sr_x.abs().max())}
+    with torch.inference_mode():
+        x_nchw = lq.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        x, lr_enc = model.netG.latent_half(x_nchw)
+        _, _, code_out = model.net_hq.decode(x)
+        rec = model.netG.aft_half(x, code_out, lr_enc["mid_feat"])
+        ov_stage = torch.stack(model.netG.deformable_decoder.dcn_overflow()).sum(0).tolist()
+        with plain_versions():
+            before = counters()
+            rec_p = model_x.netG.aft_half(x, code_out, lr_enc["mid_feat"])
+            rec_f = model_x32.netG.aft_half(x, code_out, lr_enc["mid_feat"])
+            torch.cuda.synchronize()
+            require(counters() == before, "the plain-version run launched a kernel")
+    require(ov_stage == [0, 0], f"stage check input not exact: {ov_stage}")
+    stages = {"aft_half.rec (hybrid kernels vs xla plain)": stage_cmp(rec, rec_p, rec_f)}
+    require_stages(stages)
+    del model_x, model_x32
+
+    # checkpoint-aware dispatch: audit a two-image batch, serve under what it chose
+    stats = model.auto_configure_dcn(dev(seeded_image(23, 2)))
+    # another image may still beat the audited radii: it goes through the loop too
+    before = counters()
+    with counted_get_sr(model) as n_calls:
+        (sr, ov), ms = sync_ms(lambda: enhance_exact(model, dev(seeded_image(24)),
+                                                     tag="request after the audit"))
+    moved = moved_since(before)
+    require(moved["dcn_fwd"] + moved["dcn_cascade"] == 2 * n_calls[0]
+            and bool(torch.isfinite(sr).all()),
+            f"request under the audited configuration: {moved} over {n_calls[0]} get_sr calls")
+    require(ov == {"overflow_blocks": 0, "taps_beyond_tail": 0},
+            f"the request after the audit did not end exact: {ov}")
+    audit = {"action": stats["action"], "decisions": stats["decisions"],
+             "tap_max": stats["tap_max"], "tap_p99": stats["tap_p99"],
+             "tap_frac_exceed": stats["tap_frac_exceed"],
+             "rowblk_frac_exceed_by_rpb": stats["rowblk_frac_exceed_by_rpb"],
+             "warp_tap_max": {k: v["tap_max"] for k, v in stats["warps"].items()},
+             "request_after": {"ms": ms, "get_sr_calls": n_calls[0], "launches": moved,
+                               "dcn_overflow": ov, "dcn_impl": model.netG.dcn_impl}}
+    emit({"phase": "hybrid_path", "config": "confs/LOL.yml widths, bf16, dcn_impl=hybrid R=2 "
+          "R_tail=8 capacity=0.125", "input": [H_IN, W_IN], "expected_per_call": per_call,
+          "loop": loop, "calls": calls, "launches_total": path_counts, "whole_vs_xla": whole,
+          "stage_vs_plain": stages,
+          "stage_tol": f"kernel_vs_f32 <= {STAGE_RATIO} * plain_vs_f32 + {STAGE_ABS_SLACK}",
+          "auto_configure_dcn": audit})
+    return path_counts
+
+
+H2, W2 = 400, 600                       # the stage-2 evaluation pads to a multiple of 4 only
+N_TOK2 = (H2 // 4) * (W2 // 4)          # 15000 latent tokens
+
+
+def stage2_opt(dtype="bfloat16"):
+    """The values of confs/train_stage2_LOL.yml that inference reads."""
+    opt = lol_opt()
+    opt.update({"name": "train_stage2_LOL", "model": "LLFlow", "inference_dtype": dtype})
+    opt["datasets"] = {"train": {"quant": 32, "GT_size": 320, "log_low": True}}
+    opt["network_G"] = {"which_model_G": "LLFlowVQGAN2", "flow": dict(lol_opt()["network_G"]["flow"])}
+    return opt
+
+
+def phase_stage2_path():
+    """Stage-2 inference at full width: get_sr (latent) -> decode_latent, 600x400, bf16."""
+    from glare_tpu_torch.models import create_model
+
+    t0 = time.time()
+    model = create_model(stage2_opt(), device="cuda")
+    build_s = time.time() - t0
+    # attention: 3 blocks in ConEncoder1 + 4 in the VQGAN decoder, each above the
+    # 8192-token threshold at 15000 tokens; one codebook retrieval
+    per_call = {"vq_argmin": 1, "attn_fused": 7, "dcn_fwd": 0, "dcn_cascade": 0}
+    model.decode_latent(model.get_sr(dev(seeded_image(98, 1, H2, W2))))   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    calls = []
+    for seed, batch in [(30, 1), (31, 1), (32, 2), (34, 2)]:  # a new batch size pays once
+        lq = dev(seeded_image(seed, batch, H2, W2))
+        before = counters()
+        img, ms = sync_ms(lambda: model.decode_latent(model.get_sr(lq)))
+        moved = moved_since(before)
+        require(tuple(img.shape) == (batch, H2, W2, 3) and img.dtype == torch.float32,
+                f"decode_latent output {tuple(img.shape)} {img.dtype}")
+        require(bool(torch.isfinite(img).all()), "stage-2 output is not finite")
+        require(moved == per_call, f"launches per stage-2 request {moved} != {per_call}")
+        calls.append({"seed": seed, "batch": batch, "ms": ms, "ms_per_image": ms / batch,
+                      "launches": moved, "out_mean": float(img.mean()), "out_std": float(img.std())})
+    path_counts = counters()
+    peak_mem = torch.cuda.max_memory_allocated()
+    for k, n in per_call.items():
+        require(n == 0 or path_counts[k] > 0, f"kernel {k} was never launched on the stage-2 path")
+
+    model32 = create_model(stage2_opt("float32"), device="cuda")   # same seed: the same weights
+    lq = dev(seeded_image(30, 1, H2, W2))
+    gt = dev(np.exp(seeded_image(33, 1, H2, W2)))
+    stage_ms = {}
+    for _ in range(2):  # second pass is the timed one
+        lat, stage_ms["get_sr"] = sync_ms(lambda: model.get_sr(lq))
+        img, stage_ms["decode_latent"] = sync_ms(lambda: model.decode_latent(lat))
+    idx_k = model.net_hq.quantize.last_indices.clone()
+    nll, stage_ms["get_encode_nll"] = sync_ms(lambda: model.get_encode_nll(lq, gt))
+    with plain_versions():
+        before = counters()
+        lat_p, img_p = model.get_sr(lq), model.decode_latent(lat)
+        idx_p = model.net_hq.quantize.last_indices.clone()
+        nll_p = model.get_encode_nll(lq, gt)
+        lat_f, img_f = model32.get_sr(lq), model32.decode_latent(lat)
+        idx_f = model32.net_hq.quantize.last_indices.clone()
+        nll_f = model32.get_encode_nll(lq, gt)
+        torch.cuda.synchronize()
+        require(counters() == before, "the plain-version run launched a kernel")
+    stages = {"get_sr.latent": stage_cmp(lat, lat_p, lat_f),
+              "decode_latent.image": stage_cmp(img, img_p, img_f)}
+    require_stages(stages)
+    require(bool((idx_f == idx_p).all()), "float32 and bf16 models disagree on codebook indices "
+            "for the same latent: their codebooks differ")
+    flips, flip_rel_gap = index_flips(model, lat.permute(0, 3, 1, 2), idx_k, idx_p)
+    require(all(math.isfinite(v) for v in (nll, nll_p, nll_f)), "non-finite NLL")
+    require(abs(nll - nll_f) <= STAGE_RATIO * abs(nll_p - nll_f) + STAGE_ABS_SLACK * abs(nll_f),
+            f"NLL: kernel path {nll}, plain bf16 {nll_p}, float32 {nll_f}")
+    emit({"phase": "stage2_path", "config": "confs/train_stage2_LOL.yml widths, bf16",
+          "input": [H2, W2], "latent_tokens": N_TOK2, "model_build_s": round(build_s, 2),
+          "calls": calls, "launches_total": path_counts, "expected_per_call": per_call,
+          "stage_ms_per_image": stage_ms, "stage_vs_plain": stages,
+          "stage_tol": f"kernel_vs_f32 <= {STAGE_RATIO} * plain_vs_f32 + {STAGE_ABS_SLACK}",
+          "nll_bits_per_latent_pixel": {"kernel": nll, "plain_bf16": nll_p, "float32": nll_f},
+          "index_flips": flips, "index_flip_worst_rel_gap": flip_rel_gap,
+          "max_memory_allocated": peak_mem})
+    return path_counts
 
 
 def _category(name):
@@ -579,10 +922,15 @@ def phase_profile(model):
           "top_kernels_ms": top})
 
 
+PATHS = {"vq_argmin": "main_path", "attn_fused": "main_path", "dcn_fwd": "main_path",
+         "dcn_cascade": "hybrid_path"}   # the path whose count a kernel's "launches" reports
+ALL_PHASES = "device,build,kernels,main_path,hybrid_path,stage2_path"
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="device,build,kernels,main_path",
-                    help="comma list; the last line is printed only when all four ran")
+    ap.add_argument("--phases", default=ALL_PHASES,
+                    help="comma list; the last line is printed only when all of them ran")
     ap.add_argument("--profile", action="store_true",
                     help="after main_path, trace one get_sr with torch.profiler and print "
                          "device time by kernel category")
@@ -593,16 +941,27 @@ def main():
     if "build" in phases:
         phase_build()
     kernels = phase_kernels() if "kernels" in phases else None
-    counts, model = phase_main_path() if "main_path" in phases else (None, None)
-    if args.profile and model is not None:
-        phase_profile(model)
-    if kernels is None or counts is None or "device" not in phases or "build" not in phases:
+    counts = {}
+    if "main_path" in phases:
+        counts["main_path"], model = phase_main_path()
+        if args.profile:
+            phase_profile(model)
+        del model
+        torch.cuda.empty_cache()
+    if "hybrid_path" in phases:
+        counts["hybrid_path"] = phase_hybrid_path()
+        torch.cuda.empty_cache()
+    if "stage2_path" in phases:
+        counts["stage2_path"] = phase_stage2_path()
+    if any(ph not in phases for ph in ALL_PHASES.split(",")):
         emit({"partial": True, "phases": phases, "seconds": round(time.time() - t_start, 1)})
         return
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "bound_ms", "bound_by", "library_ms", "launches_by_path")
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        k["launches_by_path"] = {path: c[k["name"]] for path, c in counts.items()}
+        k["launches"] = k["launches_by_path"][PATHS[k["name"]]]
+        require(k["launches"] > 0, f"kernel {k['name']} was never launched on {PATHS[k['name']]}")
     emit({"kernels": [{key: k[key] for key in keys} for k in kernels]})
     emit({"seconds": round(time.time() - t_start, 1)})
     print(card, flush=True)

@@ -8,6 +8,12 @@ back, gray-mean brightness adjust, PSNR/SSIM, per-image CSV + metrics.txt.
 Runs on ``cuda`` unless ``--device cpu`` is given; with no GPU and no explicit
 ``--device cpu`` it raises.
 
+Checkpoint-aware DCN dispatch, as the JAX CLI: unless ``network_G.dcn_auto:
+false``, the loaded weights' offsets are audited on the first up to four
+same-shape images (``auto_configure_dcn``); and every batch goes through
+:func:`enhance_exact`, which re-dispatches and re-runs a batch whose DCN
+overflow counters are not zero, so that the shipped output stays exact DCNv2.
+
 Weights: torch ``state_dict`` files beside the paths the conf names
 (``model_path`` / ``path.pretrained_vqgan`` with the extension ``.pth``).
 LPIPS is not computed yet (its network is not ported).
@@ -41,6 +47,75 @@ def load_model(conf_path, device="cuda"):
     else:
         print(f"WARNING: model weights not found at {model_path}; using fresh init")
     return model, opt
+
+
+def audit_on_sample(model, opt, samples):
+    """The start-up audit: ``auto_configure_dcn`` on the first up to four arrays of
+    ``samples`` that share the first one's shape, unless ``network_G.dcn_auto`` is
+    false. Returns the stats dict, or None when switched off."""
+    if opt_get(opt, ["network_G", "dcn_auto"], True) is False \
+            or not hasattr(model, "auto_configure_dcn"):
+        return None
+    sample = [s for s in samples[:4] if s.shape == samples[0].shape]
+    stats = model.auto_configure_dcn(np.stack(sample))
+    print(f"DCN offset audit ({len(sample)} images): {stats.get('action')}")
+    return stats
+
+
+def enhance_exact(model, lr_b, tag=""):
+    """``model.get_sr(lr_b)`` with the exactness guard: the configuration audited
+    on another batch may not hold for this one, and the DCN packs report their
+    own overflow. On a hit: one re-audit on this batch when a plain clamped warp
+    saw taps beyond its radius; then, for cascade warps, capacity doubled (up to
+    1.0) on block overflow and R_tail doubled (up to 16) on taps beyond it; the
+    batch is re-run each time. Ends with zero counters, or with a warning when
+    nothing is left to raise. Returns ``(sr, overflow)``: the output tensor
+    ``[B, H, W, 3]`` and the last counters (None for exact impls)."""
+    sr_b = model.get_sr(lq=lr_b, heat=None)
+    ov = model.last_dcn_overflow() if hasattr(model, "last_dcn_overflow") else None
+    reaudited = False
+
+    def aslist(v):
+        # the dcn knobs may be per-warp pairs; the counters are summed over packs,
+        # so one overflowing cascade warp upgrades every cascade warp
+        return list(v) if isinstance(v, (tuple, list)) and len(v) == 2 else [v, v]
+
+    def collapse(vals):
+        return vals[0] if len(set(vals)) == 1 else tuple(vals)
+
+    while ov and (ov["overflow_blocks"] or ov["taps_beyond_tail"]):
+        netG = model.netG
+        impls = aslist(netG.dcn_impl)
+        if ov["taps_beyond_tail"] and not reaudited and any(i == "pallas" for i in impls):
+            reaudited = True
+            stats = model.auto_configure_dcn(lr_b)
+            print(f"DCN overflow {ov} on {tag}..: re-audited on the offending batch: "
+                  f"{stats.get('action')}")
+            sr_b = model.get_sr(lq=lr_b, heat=None)
+            ov = model.last_dcn_overflow()
+            continue
+        caps = [float(c) for c in aslist(netG.dcn_hybrid_capacity)]
+        r_tails = [int(r) for r in aslist(netG.dcn_hybrid_tail_offset)]
+        changed = False
+        for w, impl_w in enumerate(impls):
+            if impl_w != "hybrid":
+                continue
+            if ov["overflow_blocks"] and caps[w] < 1.0:
+                caps[w] = min(1.0, 2 * caps[w])
+                changed = True
+            if ov["taps_beyond_tail"] and r_tails[w] < 16:
+                r_tails[w] = min(16, 2 * r_tails[w])
+                changed = True
+        if not changed:
+            print(f"WARNING: DCN cascade overflow {ov} at max capacity/radius — output is "
+                  f"clamp-approximate for {tag}..")
+            break
+        kw = {"dcn_hybrid_capacity": collapse(caps), "dcn_hybrid_tail_offset": collapse(r_tails)}
+        print(f"DCN cascade overflow {ov} on {tag}..: re-dispatching with {kw}")
+        netG.configure_dcn(**kw)
+        sr_b = model.get_sr(lq=lr_b, heat=None)
+        ov = model.last_dcn_overflow()
+    return sr_b, ov
 
 
 def main(default_conf="./confs/LOL.yml"):
@@ -81,8 +156,7 @@ def main(default_conf="./confs/LOL.yml"):
             lr_t = np.concatenate([lr_t, his_t], axis=-1)
         return lr_t, h
 
-    print("DCN offset audit skipped: audit_dcn_offsets/auto_configure_dcn are not ported yet; "
-          f"running network_G.dcn_impl={model.netG.dcn_impl!r} as configured")
+    audit_on_sample(model, opt, [prep(p)[0] for p in lr_paths[:4]])
 
     t0 = time.time()
     n_images = 0
@@ -99,12 +173,7 @@ def main(default_conf="./confs/LOL.yml"):
             i += 1
 
         lr_b = np.stack([g[2] for g in group])
-        sr_b = model.get_sr(lq=lr_b, heat=None).cpu().numpy()
-
-        ov = model.last_dcn_overflow()
-        if ov and (ov["overflow_blocks"] or ov["taps_beyond_tail"]):
-            print(f"WARNING: DCN overflow {ov} on {group[0][0]}..: offsets beyond the clamp "
-                  "radius, output is clamp-approximate (set network_G.dcn_impl: xla for exact)")
+        sr_b = enhance_exact(model, lr_b, tag=group[0][0])[0].cpu().numpy()
 
         for (lr_path, hr_path, lr_t, h), sr in zip(group, sr_b):
             hr = imread(hr_path)

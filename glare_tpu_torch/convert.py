@@ -1,6 +1,7 @@
 """Weights carried across: flax param trees -> torch ``state_dict``s.
 
-``flax_to_torch_vqgan(params)`` and ``flax_to_torch_stage3(params)`` take nested
+``flax_to_torch_vqgan(params)``, ``flax_to_torch_stage2(params)`` and
+``flax_to_torch_stage3(params)`` take nested
 dicts of numpy arrays (what ``flax.serialization.to_state_dict`` or
 ``jax.tree_util.tree_map(np.asarray, params)`` give) and return a ``state_dict``
 of torch tensors under the reference PyTorch names. They are the inverses of the
@@ -156,6 +157,15 @@ def flax_to_torch_vqgan(params):
     sd["quantize.embedding.weight"] = _t(params["quantize"]["embedding"])
     _put_conv(sd, "quant_conv", params["quant_conv"])
     _put_conv(sd, "post_quant_conv", params["post_quant_conv"])
+    return sd
+
+
+def flax_to_torch_stage2(params):
+    """flax ``LLFlowVQGAN2`` params -> torch ``state_dict`` (inverse of
+    ``convert_stage2``)."""
+    sd = {}
+    _put_cond_encoder(sd, "RRDB", params["RRDB"])
+    _put_flow_upsampler(sd, "flowUpsamplerNet", params["flowUpsamplerNet"])
     return sd
 
 

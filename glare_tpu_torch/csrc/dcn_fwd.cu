@@ -25,6 +25,22 @@
 // tap's [C, O] weight slice, read from L2. bf16: wmma 16x16x16 fragments, each
 // warp owns O/16 column fragments interleaved by 8, all 4 row fragments.
 // f32: scalar FMA, each thread 8 pixels x up to 8 outputs.
+//
+// Second entry, `dcn_cascade_fwd`: replaces the Pallas cascade
+// `modulated_deform_conv_pallas_cascade` (base `_kernel` + compacted tail
+// `_kernel_selected`, glare_tpu/ops/dcn_pallas.py). Same function: every row
+// block that the caller selected is computed whole at the wide clamp R_tail,
+// every other block at the narrow clamp R. On the TPU that is two launches (a
+// clamp-R pass over the image, then a pass over a compacted list of block ids
+// that writes into the first pass's buffer), because there the cost of a pass
+// grows with (2R+1)^2 and the wide radius must touch few rows. Here a gather
+// costs the same at any radius, so the design taken is ONE pass with a radius
+// per image row: the caller hands a float [B*H] table (R_tail on the rows of
+// selected blocks, R elsewhere) and each pixel's taps are clamped at its own
+// row's radius (a block of 64 flat pixels may straddle rows, so the lookup is
+// per pixel). The work and the bound are those of one plain pass; the second
+// design (base launch + in-place launch over a device list of block ids) would
+// do (1 + selected share) times the work for the same result.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -96,7 +112,8 @@ struct Dims {
 };
 
 // Sample tap k of pixels [p0, p0+TP) into tile[TP][ldt] (channel order g*Cg+cg).
-template <typename T, int VEC>
+// ROWS: clampR is a per-image-row table [B*H] (the cascade); else per (g, k).
+template <typename T, int VEC, bool ROWS>
 __device__ __forceinline__ void sample_tap(T* tile, int ldt, const T* __restrict__ x,
                                            const float* __restrict__ offset,
                                            const float* __restrict__ mask,
@@ -121,7 +138,7 @@ __device__ __forceinline__ void sample_tap(T* tile, int ldt, const T* __restrict
       const int h_ = (int)(t % d.H);
       const int b_ = (int)(t / d.H);
       const size_t gk = ((size_t)p * d.G + g) * KK + k;
-      const float r = clampR[g * KK + k];
+      const float r = ROWS ? clampR[(size_t)b_ * d.H + h_] : clampR[g * KK + k];
       const float dy = fminf(fmaxf(offset[gk * 2], -r), r);
       const float dx = fminf(fmaxf(offset[gk * 2 + 1], -r), r);
       const float py = (float)(h_ + ky) + dy;
@@ -154,7 +171,7 @@ __device__ __forceinline__ void sample_tap(T* tile, int ldt, const T* __restrict
 
 // ---------------------------------------------------------------- bf16 ----
 // weight [9*C, O] bf16 (row k*C + c), C % 16 == 0, O % 16 == 0, O <= 256.
-template <int VEC>
+template <int VEC, bool ROWS>
 __global__ void __launch_bounds__(NT)
 dcn_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ offset,
                 const float* __restrict__ mask, const bf16* __restrict__ weight,
@@ -176,7 +193,7 @@ dcn_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ offset,
 
   for (int k = 0; k < KK; ++k) {
     __syncthreads();  // the previous tap's tile has been consumed
-    sample_tap<bf16, VEC>(tile, ldt, x, offset, mask, clampR, d, k, p0, P);
+    sample_tap<bf16, VEC, ROWS>(tile, ldt, x, offset, mask, clampR, d, k, p0, P);
     __syncthreads();
     const bf16* wk = weight + (size_t)k * d.C * d.O;
     for (int kk = 0; kk < d.C; kk += 16) {
@@ -226,7 +243,7 @@ dcn_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ offset,
 // ----------------------------------------------------------------- f32 ----
 // weight [9*C, O] f32, O <= 256. Thread (warp w, lane l): pixels w*8..w*8+7,
 // outputs l, l+32, ..., l+224.
-template <int VEC>
+template <int VEC, bool ROWS>
 __global__ void __launch_bounds__(NT)
 dcn_f32_kernel(const float* __restrict__ x, const float* __restrict__ offset,
                const float* __restrict__ mask, const float* __restrict__ weight,
@@ -247,7 +264,7 @@ dcn_f32_kernel(const float* __restrict__ x, const float* __restrict__ offset,
 
   for (int k = 0; k < KK; ++k) {
     __syncthreads();
-    sample_tap<float, VEC>(tile, ldt, x, offset, mask, clampR, d, k, p0, P);
+    sample_tap<float, VEC, ROWS>(tile, ldt, x, offset, mask, clampR, d, k, p0, P);
     __syncthreads();
     const float* wk = weight + (size_t)k * d.C * d.O;
     const float* trow = tile + warp * 8 * ldt;
@@ -279,14 +296,25 @@ dcn_f32_kernel(const float* __restrict__ x, const float* __restrict__ offset,
   }
 }
 
-}  // namespace
 
-// x [B,H,W,C], offset [B,H,W,G,9,2] f32 (dy,dx), mask [B,H,W,G,9] f32,
-// weight [9*C, O] (row k*C + c) in x's dtype, bias [O] f32 or null,
-// clampR [G*9] f32 (inf = no clamp), out [B,H,W,O] in x's dtype.
-extern "C" int dcn_fwd(const void* x, const void* offset, const void* mask, const void* weight,
-                       const void* bias, const void* clampR, void* out, int B, int H, int W, int C,
-                       int O, int G, int is_bf16, void* stream) {
+template <typename T, typename K>
+int launch_t(K kernel, unsigned int blocks, size_t smem, cudaStream_t s, const void* x,
+             const float* offset, const float* mask, const void* weight, const float* bias,
+             const float* clampR, void* out, Dims d) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<blocks, NT, smem, s>>>(static_cast<const T*>(x), offset, mask,
+                                  static_cast<const T*>(weight), bias, clampR,
+                                  static_cast<T*>(out), d);
+  return (int)cudaGetLastError();
+}
+
+// ROWS = false: clampR is [G*9]; ROWS = true: clampR is [B*H].
+template <bool ROWS>
+int dcn_launch(const void* x, const void* offset, const void* mask, const void* weight,
+               const void* bias, const void* clampR, void* out, int B, int H, int W, int C, int O,
+               int G, int is_bf16, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return 0;
   if (G < 1 || C % G != 0 || O < 1 || O > 256) return (int)cudaErrorInvalidValue;
   const Dims d = {B, H, W, C, O, G};
@@ -298,42 +326,43 @@ extern "C" int dcn_fwd(const void* x, const void* offset, const void* mask, cons
   const float* mf = static_cast<const float*>(mask);
   const float* bf = static_cast<const float*>(bias);
   const float* cr = static_cast<const float*>(clampR);
-  cudaError_t e;
   if (is_bf16) {
     if (C % 16 != 0 || O % 16 != 0) return (int)cudaErrorInvalidValue;
     const size_t tile_b = (size_t)TP * (C + 8) * sizeof(bf16);
     const size_t stage_b = (size_t)TP * O * sizeof(float);
     const size_t smem = tile_b > stage_b ? tile_b : stage_b;
-    const bf16* xb = static_cast<const bf16*>(x);
-    const bf16* wb = static_cast<const bf16*>(weight);
-    bf16* ob = static_cast<bf16*>(out);
-    if (Cg % 8 == 0) {
-      e = cudaFuncSetAttribute(dcn_bf16_kernel<8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-      if (e != cudaSuccess) return (int)e;
-      dcn_bf16_kernel<8><<<blocks, NT, smem, s>>>(xb, of, mf, wb, bf, cr, ob, d);
-    } else {
-      e = cudaFuncSetAttribute(dcn_bf16_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-      if (e != cudaSuccess) return (int)e;
-      dcn_bf16_kernel<1><<<blocks, NT, smem, s>>>(xb, of, mf, wb, bf, cr, ob, d);
-    }
-  } else {
-    const size_t smem = (size_t)TP * (C + 4) * sizeof(float);
-    const float* xf = static_cast<const float*>(x);
-    const float* wf = static_cast<const float*>(weight);
-    float* outf = static_cast<float*>(out);
-    if (Cg % 4 == 0) {
-      e = cudaFuncSetAttribute(dcn_f32_kernel<4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-      if (e != cudaSuccess) return (int)e;
-      dcn_f32_kernel<4><<<blocks, NT, smem, s>>>(xf, of, mf, wf, bf, cr, outf, d);
-    } else {
-      e = cudaFuncSetAttribute(dcn_f32_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-      if (e != cudaSuccess) return (int)e;
-      dcn_f32_kernel<1><<<blocks, NT, smem, s>>>(xf, of, mf, wf, bf, cr, outf, d);
-    }
+    if (Cg % 8 == 0)
+      return launch_t<bf16>(dcn_bf16_kernel<8, ROWS>, blocks, smem, s, x, of, mf, weight, bf, cr,
+                            out, d);
+    return launch_t<bf16>(dcn_bf16_kernel<1, ROWS>, blocks, smem, s, x, of, mf, weight, bf, cr,
+                          out, d);
   }
-  return (int)cudaGetLastError();
+  const size_t smem = (size_t)TP * (C + 4) * sizeof(float);
+  if (Cg % 4 == 0)
+    return launch_t<float>(dcn_f32_kernel<4, ROWS>, blocks, smem, s, x, of, mf, weight, bf, cr,
+                           out, d);
+  return launch_t<float>(dcn_f32_kernel<1, ROWS>, blocks, smem, s, x, of, mf, weight, bf, cr, out,
+                         d);
+}
+
+}  // namespace
+
+// x [B,H,W,C], offset [B,H,W,G,9,2] f32 (dy,dx), mask [B,H,W,G,9] f32,
+// weight [9*C, O] (row k*C + c) in x's dtype, bias [O] f32 or null,
+// clampR [G*9] f32 (inf = no clamp), out [B,H,W,O] in x's dtype.
+extern "C" int dcn_fwd(const void* x, const void* offset, const void* mask, const void* weight,
+                       const void* bias, const void* clampR, void* out, int B, int H, int W, int C,
+                       int O, int G, int is_bf16, void* stream) {
+  return dcn_launch<false>(x, offset, mask, weight, bias, clampR, out, B, H, W, C, O, G, is_bf16,
+                           stream);
+}
+
+// The cascade: as dcn_fwd, but rowR [B*H] f32 holds the clamp radius of every
+// image row (R_tail on the rows of the selected row blocks, R elsewhere).
+extern "C" int dcn_cascade_fwd(const void* x, const void* offset, const void* mask,
+                               const void* weight, const void* bias, const void* rowR, void* out,
+                               int B, int H, int W, int C, int O, int G, int is_bf16,
+                               void* stream) {
+  return dcn_launch<true>(x, offset, mask, weight, bias, rowR, out, B, H, W, C, O, G, is_bf16,
+                          stream);
 }

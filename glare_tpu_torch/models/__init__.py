@@ -1,7 +1,8 @@
 """Model registry (counterpart of ``glare_tpu/models/__init__.py``).
 
 ``create_model(opt, device=...)`` maps ``opt['model']`` to a wrapper class.
-Only the stage-3 model ('VQLLFLOWD') is ported so far.
+Ported so far, both for inference: the stage-2 model ('LLFlow') and the stage-3
+model ('VQLLFLOWD').
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ def create_model(opt, step=0, device="cuda"):
 
         return VQLLFLOWDModel(opt, step, device=device)
     if model_name == "LLFlow":
-        raise NotImplementedError(
-            "Model [LLFlow] (stage 2) is not ported yet; it comes in a later slice of the port")
+        from .llflow_model import LLFlowModel
+
+        return LLFlowModel(opt, step, device=device)
     raise NotImplementedError(f"Model [{model_name}] not recognized.")

@@ -29,6 +29,13 @@ class BaseModel:
         self.is_train = opt.get("is_train", False)
 
     @staticmethod
+    def _torchify(path):
+        """The confs name ``*.flax`` files of the JAX package; the port reads the
+        ``*.pth`` beside them."""
+        base, ext = os.path.splitext(path)
+        return path if ext in (".pth", ".pkl", ".pt") else base + ".pth"
+
+    @staticmethod
     def load_state_dict_file(path):
         sd = torch.load(path, map_location="cpu", weights_only=True)
         if isinstance(sd, dict) and "state_dict" in sd:

@@ -1,12 +1,13 @@
 """Network factory (counterpart of ``glare_tpu/models/networks.py``).
 
 ``define_Flow`` builds the generator named by ``network_G.which_model_G``
-(the stage-3 ``VQLLFLOWDeformable`` so far); ``find_vqgan`` builds the frozen
-VQGAN named by ``network_VQGAN.type``.
+(the stage-2 ``LLFlowVQGAN2`` or the stage-3 ``VQLLFLOWDeformable``);
+``find_vqgan`` builds the frozen VQGAN named by ``network_VQGAN.type``.
 """
 
 from __future__ import annotations
 
+from ..modules.llflow_vqgan2 import LLFlowVQGAN2
 from ..modules.vqllflow_deformable import VQLLFLOWDeformable
 from ..modules.vqmodel import VQModel
 from ..utils.util import opt_get
@@ -31,22 +32,28 @@ def define_Flow(opt, step=0):
     if which_model == "VQLLFLOWDeformable":
         warp_mode = opt_get(opt, ["network_G", "warp_mode"], "dcn") or "dcn"
         # inference defaults to the exact unbounded op ('xla'); 'pallas' clamps at
-        # network_G.dcn_max_offset. Training (default 'chain') is not ported yet.
+        # network_G.dcn_max_offset; 'hybrid' is the cascade (clamp + wide-radius tail
+        # on up to dcn_hybrid_capacity of the row blocks, exact for offsets up to
+        # dcn_hybrid_tail_offset). Training (default 'chain') is not ported yet.
         dcn_impl = opt_get(opt, ["network_G", "dcn_impl"], None) or (
             "chain" if opt.get("is_train") else "xla")
         dcn_r = opt_get(opt, ["network_G", "dcn_max_offset"], 2) or 2
         if not isinstance(dcn_r, (tuple, list)):
             dcn_r = int(dcn_r)
+        dcn_cap = float(opt_get(opt, ["network_G", "dcn_hybrid_capacity"], 0.125) or 0.125)
+        dcn_tail = int(opt_get(opt, ["network_G", "dcn_hybrid_tail_offset"], 8) or 8)
         # miniaturization knobs for tests (shipped geometry when absent)
         mini = {k: int(opt_get(opt, ["network_G", k]))
                 for k in ("enc_ch", "decoder_ch", "enc_num_res_blocks", "dec_num_res_blocks")
                 if opt_get(opt, ["network_G", k]) is not None}
         return VQLLFLOWDeformable(warp_mode=warp_mode, dcn_impl=dcn_impl, dcn_max_offset=dcn_r,
+                                  dcn_hybrid_capacity=dcn_cap, dcn_hybrid_tail_offset=dcn_tail,
                                   **mini, **kw)
     if which_model == "LLFlowVQGAN2":
-        raise NotImplementedError(
-            "Generator model [LLFlowVQGAN2] (stage 2) is not ported yet; it comes in a later "
-            "slice of the port")
+        mini = {k: int(opt_get(opt, ["network_G", k]))
+                for k in ("enc_ch", "enc_num_res_blocks")
+                if opt_get(opt, ["network_G", k]) is not None}
+        return LLFlowVQGAN2(**mini, **kw)
     raise NotImplementedError(f"Generator model [{which_model}] not recognized")
 
 

@@ -9,19 +9,24 @@ under ``torch.inference_mode()``. It takes and returns ``[B, H, W, 3]`` float32
 (like the JAX model); inside, tensors are NCHW in channels_last memory and the
 convolutions run in bf16 when ``inference_dtype: bfloat16``.
 
-Not ported yet: the train step, and ``audit_dcn_offsets`` / ``auto_configure_dcn``
-(a cost model over the TPU cascade's select-chain cells), which wait for the
-slice that ports the DCN cascade.
+``audit_dcn_offsets`` / ``auto_configure_dcn`` measure the loaded weights' DCN
+offsets on a batch and pick, per warp, the cheapest configuration that is exact
+for it: the same stats and the same choices as the JAX model makes on a TPU.
+
+Not ported yet: the train step.
 """
 
 from __future__ import annotations
 
+import math
 import os
 
+import numpy as np
 import torch
 
 from ..modules.vqllflow_deformable import VQLLFLOWDeformable
 from ..nn.layers import cast_convs_, seed_init_
+from ..ops.dcn import cascade_rows_per_block
 from ..utils.util import opt_get
 from .base_model import BaseModel
 from .networks import define_Flow, find_vqgan
@@ -77,13 +82,6 @@ class VQLLFLOWDModel(BaseModel):
         cast_convs_(self.net_hq, self.dtype)
         self._dcn_overflow_raw = None
 
-    @staticmethod
-    def _torchify(path):
-        """The conf names ``*.flax`` files of the JAX package; the port reads the
-        ``*.pth`` beside them."""
-        base, ext = os.path.splitext(path)
-        return path if ext in (".pth", ".pkl", ".pt") else base + ".pth"
-
     def load_network(self, load_path, strict=True):
         """Load a stage-3 ``state_dict`` file into netG (weights are cast to the
         model's compute dtype afterwards)."""
@@ -119,12 +117,221 @@ class VQLLFLOWDModel(BaseModel):
         """Summed ``[overflow_blocks, taps_beyond_tail]`` over every DCNv2 pack in
         the last ``get_sr`` call, or None when every pack ran the exact impl.
         Non-zero counts mean the last batch's output deviated from exact DCNv2
-        (offsets beyond the clamp radius)."""
+        (offsets beyond the clamp or tail radius, or more out-of-band row blocks
+        than the cascade's capacity). The counters stay on the device until this
+        is called."""
         raw = [t for t in (self._dcn_overflow_raw or []) if t is not None]
         if not raw:
             return None
         total = torch.stack(raw).sum(dim=0).tolist()
         return {"overflow_blocks": int(total[0]), "taps_beyond_tail": int(total[1])}
+
+    # ---------------- checkpoint-aware DCN dispatch ----------------
+
+    @torch.inference_mode()
+    def audit_dcn_offsets(self, lq, radii=(1, 2, 4, 8)):
+        """Measured offset stats of the LOADED weights on one batch.
+
+        Runs the stage-3 forward once with the two packs keeping their raw
+        offsets (``DCNv2Pack.audit_offsets``) and returns Linf stats at tap,
+        pixel and row-block granularity, at every radius in ``radii`` (callers
+        pass the actual clamp radius). Row-block granularity is the cascade's
+        unit, reported for both block sizes it can run (16 rows for
+        R_tail < 6, 8 otherwise). Same keys and values as the JAX model's."""
+        packs = [w.dcn for w in self.netG.deformable_decoder.warp]
+        saved_overflow = self._dcn_overflow_raw
+        for p in packs:
+            p.audit_offsets = True
+        try:
+            self.get_sr(lq)
+            # reduce over (dy, dx) on the device; everything below needs only that
+            linf = [p.last_offsets.abs().amax(dim=-1).cpu().numpy() for p in packs]
+        finally:
+            for p in packs:
+                p.audit_offsets = False
+                p.last_offsets = None
+            self._dcn_overflow_raw = saved_overflow
+
+        radii = tuple(sorted({int(r) for r in radii}))
+        rpbs = (8, 16)
+        tap_linf, pix_linf = [], []
+        blk_fr = {rpb: {r: [] for r in radii} for rpb in rpbs}
+        per_warp = {}
+        for w, taps in enumerate(linf):            # taps: [B, H, W, G, K]
+            taps_w = taps.reshape(-1)
+            pix_w = taps.max(axis=(3, 4)).reshape(-1)
+            row = taps.max(axis=(2, 3, 4))         # [B, H]
+            B_, H_ = row.shape
+            blks_w = {}
+            for rpb in rpbs:
+                Hb = -(-H_ // rpb) * rpb
+                rowp = np.pad(row, [(0, 0), (0, Hb - H_)])
+                blks_w[rpb] = rowp.reshape(B_, -1, rpb).max(axis=2).reshape(-1)
+            tap_linf.append(taps_w)
+            pix_linf.append(pix_w)
+            for rpb in rpbs:
+                for r in radii:
+                    blk_fr[rpb][r].append(blks_w[rpb] > r)
+            per_warp[f"warp_{w}"] = {
+                "tap_p99": float(np.percentile(taps_w, 99)),
+                "tap_max": float(taps_w.max()),
+                "per_gk_max": [[float(v) for v in r_] for r_ in taps.max(axis=(0, 1, 2))],
+                "tap_frac_exceed": {r: float((taps_w > r).mean()) for r in radii},
+                "pix_frac_exceed": {r: float((pix_w > r).mean()) for r in radii},
+                "rowblk_frac_exceed_by_rpb": {
+                    rpb: {r: float((blks_w[rpb] > r).mean()) for r in radii} for rpb in rpbs},
+            }
+        taps = np.concatenate(tap_linf)
+        pix = np.concatenate(pix_linf)
+        return {
+            "tap_p99": float(np.percentile(taps, 99)),
+            "tap_max": float(taps.max()),
+            "tap_frac_exceed": {r: float((taps > r).mean()) for r in radii},
+            "pix_frac_exceed": {r: float((pix > r).mean()) for r in radii},
+            "rowblk_frac_exceed": {r: float(np.concatenate(v).mean())
+                                   for r, v in blk_fr[8].items()},
+            "rowblk_frac_exceed_by_rpb": {
+                rpb: {r: float(np.concatenate(v).mean()) for r, v in by_r.items()}
+                for rpb, by_r in blk_fr.items()},
+            "warps": per_warp,
+        }
+
+    def auto_configure_dcn(self, lq, tap_tol=1e-3, capacity_margin=4.0):
+        """Pick a parity-safe DCN path for the loaded checkpoint.
+
+        The clamped impl is exact only while the learned offsets stay inside
+        [-R, R]; reference-trained weights are not guaranteed to. This measures
+        the loaded weights on a real batch and, per warp, takes the cheapest
+        configuration that is exact for it: the clamp as configured, a plain
+        wider clamp, per-tap radii, or the cascade ('hybrid') with R_tail above
+        the measured tap max and capacity = ``capacity_margin`` x the measured
+        out-of-band row-block fraction. 'xla' needs nothing.
+
+        The cost of an option is the JAX package's proxy (select-chain cells per
+        pixel of its TPU kernels), kept as it is so that a checkpoint gets the
+        same configuration in both packages; the choices are those the JAX model
+        makes on a TPU. Returns the stats dict with ``action`` and ``decisions``
+        added. A warp whose offsets go beyond the cascade's 16 px menu would need
+        the gather hybrid, which is not ported: NotImplementedError.
+        """
+        def aslist(v):
+            return list(v) if isinstance(v, (tuple, list)) and len(v) == 2 else [v, v]
+
+        netG = self.netG
+        impls = aslist(netG.dcn_impl)
+        if all(i == "xla" for i in impls):
+            return {"action": "none (exact xla path)"}
+        # a per-warp entry may itself be a [G][K] per-tap radius table: keep it a tuple
+        Rs = [tuple(tuple(int(r) for r in row) for row in v)
+              if isinstance(v, (tuple, list)) else int(v)
+              for v in aslist(netG.dcn_max_offset)]
+        caps0 = aslist(netG.dcn_hybrid_capacity)
+        tails0 = aslist(netG.dcn_hybrid_tail_offset)
+        # audit at the actual clamp radii, not a fixed menu
+        int_Rs = {r for r in Rs if isinstance(r, int)} | {
+            r for v in Rs if isinstance(v, tuple) for row in v for r in row}
+        stats = self.audit_dcn_offsets(lq, radii=sorted({1, 2, 4, 8, 16} | int_Rs))
+
+        def cells(r):
+            return (2 * int(r) + 1) ** 2
+
+        def decide(w, ws):
+            """Min-cost exact configuration for one warp, from its stats. Cost
+            proxy: plain clamp R' costs cells(R'); the cascade costs
+            cells(R) + capacity * cells(R_tail)."""
+            impl_w, R_w = impls[w], Rs[w]
+            tap_max = ws["tap_max"]
+            per_gk = np.array(ws["per_gk_max"], float) if "per_gk_max" in ws else None
+            opts = []
+            if isinstance(R_w, tuple):
+                # per-tap radii: exact iff every tap's measured max is inside its own
+                r_arr = np.array(R_w, float)
+                if (per_gk is not None and impl_w in ("pallas", "chain")
+                        and (per_gk <= r_arr).all()):
+                    opts.append(dict(impl=impl_w, R=R_w, cap=caps0[w], r_tail=tails0[w],
+                                     cost=float(((2 * r_arr + 1) ** 2).mean()),
+                                     note="kept (per-tap radii cover audit)"))
+                R_base = 2  # rebuild the option menu from the default base
+            else:
+                tail = ws["tap_frac_exceed"][R_w]
+                if impl_w in ("pallas", "chain") and tail <= tap_tol:
+                    opts.append(dict(impl=impl_w, R=R_w, cap=caps0[w], r_tail=tails0[w],
+                                     cost=cells(R_w),
+                                     note=f"kept (tail {tail:.6f} <= {tap_tol})"))
+                R_base = R_w
+            # plain clamped kernel at a radius covering tap max + 1 px margin
+            plain_impl = "pallas"
+            r_plain = max(1, int(math.ceil(tap_max + 1.0)))
+            if r_plain <= 15:
+                opts.append(dict(impl=plain_impl, R=r_plain, cap=caps0[w],
+                                 r_tail=max(tails0[w], r_plain + 1), cost=cells(r_plain),
+                                 note=f"plain clamp R={r_plain} covers tap "
+                                      f"max {tap_max:.1f} + 1 px"))
+            # per-tap radii: each (g, k) clamps at its own audited max plus a
+            # relative margin (50% of the max, bounded to [0.5, 1] px)
+            if per_gk is not None and per_gk.max() <= 14.0:
+                radii = tuple(
+                    tuple(max(1, min(15, int(math.ceil(m + min(1.0, max(0.5, 0.5 * m))))))
+                          for m in row)
+                    for row in ws["per_gk_max"])
+                r_np = np.array(radii, float)
+                mean_cells = float(((2 * r_np + 1) ** 2).mean())
+                opts.append(dict(impl="pallas", R=radii, cap=caps0[w],
+                                 r_tail=max(tails0[w], int(r_np.max()) + 1), cost=mean_cells,
+                                 note=f"per-tap radii {int(r_np.min())}-{int(r_np.max())} px "
+                                      f"(mean {mean_cells:.0f} cells/tap)"))
+            # cascade: capacity from the measured block tail at the block size the
+            # cascade will use, uncapped to 1.0
+            for r_t in (4, 8, 16):
+                if r_t > R_base and tap_max <= r_t - 1.0:
+                    rpb = cascade_rows_per_block(r_t, 16)
+                    frac = ws["rowblk_frac_exceed_by_rpb"][rpb][R_base]
+                    cap = min(1.0, max(1 / 64, capacity_margin * frac))
+                    opts.append(dict(impl="hybrid", R=R_base, cap=cap, r_tail=r_t,
+                                     cost=cells(R_base) + cap * cells(r_t),
+                                     note=f"cascade R={R_base}/R_tail={r_t} cap {cap:.4f} "
+                                          f"= {capacity_margin}x {rpb}-row-block tail "
+                                          f"{frac:.4f}"))
+            if not opts:
+                raise NotImplementedError(
+                    f"warp_{w}: tap max {tap_max:.1f} is beyond the 16 px cascade menu; the JAX "
+                    "package switches to dcn_impl 'hybrid_gather' here, which is not ported yet "
+                    "(a later slice of the port); use dcn_impl 'xla' for this checkpoint")
+            best = min(opts, key=lambda o: o["cost"])
+            # hysteresis: keep the exact-as-configured option unless the winner is
+            # more than 15% cheaper
+            kept = next((o for o in opts if o["note"].startswith("kept")), None)
+            if kept is not None and kept["cost"] <= 1.15 * best["cost"]:
+                return kept
+            return best
+
+        warp_names = sorted(stats["warps"])
+        decisions = [decide(w, stats["warps"][name]) for w, name in enumerate(warp_names)]
+        if len(decisions) == 1:
+            decisions = decisions * 2
+
+        def collapse(vals):
+            vals = tuple(vals)
+            if any(isinstance(v, (tuple, list)) for v in vals):
+                return vals  # never collapse per-tap tables to a bare value
+            return vals[0] if len(set(vals)) == 1 else vals
+
+        new = dict(dcn_impl=collapse(d["impl"] for d in decisions),
+                   dcn_max_offset=collapse(d["R"] for d in decisions),
+                   dcn_hybrid_capacity=collapse(d["cap"] for d in decisions),
+                   dcn_hybrid_tail_offset=collapse(d["r_tail"] for d in decisions))
+        cur = dict(dcn_impl=collapse(impls), dcn_max_offset=collapse(Rs),
+                   dcn_hybrid_capacity=collapse(caps0),
+                   dcn_hybrid_tail_offset=collapse(tails0))
+        per_warp_note = "; ".join(f"{name}: {d['impl']} {d['note']}"
+                                  for name, d in zip(warp_names, decisions))
+        if new != cur:
+            netG.configure_dcn(**new)
+            stats["action"] = f"reconfigured per-warp: {per_warp_note}"
+        else:
+            stats["action"] = f"kept: {per_warp_note}"
+        stats["decisions"] = {name: dict(d) for name, d in zip(warp_names, decisions)}
+        return stats
 
     def get_sr_with_z(self, lq, heat=None, seed=None, z=None, epses=None):
         """Reference-API parity: the latent seed is the conditional colour map, so

@@ -28,39 +28,59 @@ from torch import nn
 from ..nn.layers import AttnBlock, Conv, GroupNorm32, ResnetBlock, Upsample, swish
 from ..ops import dcn as dcn_ops
 
-_LATER = ("dcn_impl '{}' is not ported yet: the DCN cascade (hybrid) with its offset audit, the "
-          "chain op and the gather hybrid come in a later slice of the port; use 'xla' (exact) "
-          "or 'pallas' (clamped at dcn_max_offset)")
+_LATER = ("dcn_impl '{}' is not ported yet: the chain op (the training formulation) and the "
+          "gather hybrid come in a later slice of the port; use 'xla' (exact), 'pallas' (clamped "
+          "at dcn_max_offset) or 'hybrid' (the cascade)")
 
 
 class DCNv2Pack(nn.Module):
     """Modulated deformable conv, offsets from a side feature map.
 
     impl: ``'xla'`` = exact, unbounded offsets; ``'pallas'`` = offsets clamped
-    to ``max_offset`` (an int, or a ``[G][K]`` nested tuple of per-tap radii).
-    The names are the JAX package's option values; here both run the one
-    hand-written CUDA kernel on the card (``ops/dcn.py``). The other impls of
-    the JAX package raise ``NotImplementedError``.
+    to ``max_offset`` (an int, or a ``[G][K]`` nested tuple of per-tap radii);
+    ``'hybrid'`` = the cascade: clamp ``max_offset`` everywhere, and up to
+    ``hybrid_capacity`` of the row blocks that hold a tap beyond it recomputed
+    at clamp ``max(hybrid_tail_offset, max_offset + 1)`` (a per-tap table is
+    collapsed to its largest radius). The names are the JAX package's option
+    values; on the card all run the hand-written CUDA kernels of ``ops/dcn.py``.
+    ``'hybrid'`` always takes the cascade (the JAX module does so on a TPU; off
+    a TPU it stands in its gather hybrid for the Mosaic kernel). ``'chain'`` and
+    ``'hybrid_gather'`` raise ``NotImplementedError``.
 
-    After a forward with a clamped impl, ``dcn_overflow`` holds the int64 tensor
-    ``[0, n_taps_beyond_clamp]`` (the JAX module's ``dcn_overflow`` sow): non-zero
-    means this batch's output deviates from exact DCNv2.
+    After a forward with a bounded impl, ``dcn_overflow`` holds an int64 ``[2]``
+    tensor on the device (the JAX module's ``dcn_overflow`` sow): for
+    ``'pallas'`` ``[0, taps beyond the clamp]``, for ``'hybrid'`` ``[out-of-band
+    blocks that did not fit the capacity, taps beyond the tail radius]``.
+    Non-zero means this batch's output deviates from exact DCNv2. With
+    ``audit_offsets`` the raw ``[B, H, W, G, K, 2]`` offsets of the last forward
+    are kept in ``last_offsets`` (the JAX module's ``offsets`` sow).
     """
 
+    IMPLS = ("xla", "pallas", "hybrid")
+
     def __init__(self, in_channels, features, deformable_groups=4, kernel_size=3, impl="xla",
-                 max_offset: Any = 2):
+                 max_offset: Any = 2, hybrid_capacity=0.125, hybrid_tail_offset=8,
+                 audit_offsets=False):
         super().__init__()
         if kernel_size != 3:
             raise ValueError("DCNv2Pack: only 3x3 is ported")
-        if impl not in ("xla", "pallas"):
-            raise NotImplementedError(_LATER.format(impl))
         self.G, self.K = deformable_groups, kernel_size * kernel_size
-        self.impl, self.max_offset = impl, max_offset
+        self.configure(impl, max_offset, hybrid_capacity, hybrid_tail_offset)
+        self.audit_offsets = audit_offsets
+        self.last_offsets = None
         self.conv_offset = Conv(in_channels, self.G * 3 * self.K, 3, padding=1, zero_init=True)
         self.weight = nn.Parameter(torch.zeros(features, in_channels, 3, 3))
         self.bias = nn.Parameter(torch.zeros(features))
         self.dcn_overflow = None
         self.last_shapes = None
+
+    def configure(self, impl, max_offset, hybrid_capacity=0.125, hybrid_tail_offset=8):
+        """Set the dispatch knobs (no weight changes)."""
+        if impl not in self.IMPLS:
+            raise NotImplementedError(_LATER.format(impl))
+        self.impl, self.max_offset = impl, max_offset
+        self.hybrid_capacity = float(hybrid_capacity)
+        self.hybrid_tail_offset = int(hybrid_tail_offset)
 
     def seeded_reset(self, generator):
         bound = 1.0 / math.sqrt(self.weight.shape[1] * self.K)
@@ -80,6 +100,20 @@ class DCNv2Pack(nn.Module):
 
     def forward(self, x, feat):
         offset, mask = self.offsets_and_mask(feat)
+        self.last_offsets = offset if self.audit_offsets else None
+        x_nhwc = x.permute(0, 2, 3, 1)
+        weight = self.weight.permute(2, 3, 1, 0)
+        self.last_shapes = {"x": list(x_nhwc.shape), "offset": list(offset.shape),
+                            "mask": list(mask.shape), "dtype": str(x.dtype).split(".")[-1]}
+        if self.impl == "hybrid":
+            mo = self.max_offset
+            if isinstance(mo, (tuple, list)):  # the cascade is uniform-radius
+                mo = max(max(row) for row in mo)
+            out, self.dcn_overflow = dcn_ops.modulated_deform_conv_cascade(
+                x_nhwc, offset, mask, weight, self.bias, max_offset=int(mo),
+                tail_offset=max(self.hybrid_tail_offset, int(mo) + 1),
+                capacity_frac=self.hybrid_capacity, return_overflow=True)
+            return out.permute(0, 3, 1, 2)
         if self.impl == "pallas":
             max_offset = self.max_offset
             thresh = dcn_ops.clamp_table(max_offset, self.G, self.K).to(offset.device)
@@ -88,12 +122,8 @@ class DCNv2Pack(nn.Module):
         else:
             max_offset = None
             self.dcn_overflow = None
-        x_nhwc = x.permute(0, 2, 3, 1)
-        self.last_shapes = {"x": list(x_nhwc.shape), "offset": list(offset.shape),
-                            "mask": list(mask.shape), "dtype": str(x.dtype).split(".")[-1]}
-        out = dcn_ops.modulated_deform_conv(
-            x_nhwc, offset, mask, self.weight.permute(2, 3, 1, 0), self.bias,
-            max_offset=max_offset)
+        out = dcn_ops.modulated_deform_conv(x_nhwc, offset, mask, weight, self.bias,
+                                            max_offset=max_offset)
         return out.permute(0, 3, 1, 2)
 
 
@@ -101,7 +131,8 @@ class WarpBlock(nn.Module):
     """Align VQGAN features to the hidden state via DCNv2 (``warp_mode='dcn'``;
     the bounded group-flow alignment ``'flow'`` is not ported yet)."""
 
-    def __init__(self, channels, warp_mode="dcn", dcn_impl="xla", dcn_max_offset: Any = 2):
+    def __init__(self, channels, warp_mode="dcn", dcn_impl="xla", dcn_max_offset: Any = 2,
+                 dcn_hybrid_capacity=0.125, dcn_hybrid_tail_offset=8, dcn_audit_offsets=False):
         super().__init__()
         if warp_mode != "dcn":
             raise NotImplementedError(
@@ -109,7 +140,9 @@ class WarpBlock(nn.Module):
                 "slice of the port")
         self.offset = Conv(channels * 2, channels, 3, padding=1)
         self.dcn = DCNv2Pack(channels, channels, deformable_groups=4, impl=dcn_impl,
-                             max_offset=dcn_max_offset)
+                             max_offset=dcn_max_offset, hybrid_capacity=dcn_hybrid_capacity,
+                             hybrid_tail_offset=dcn_hybrid_tail_offset,
+                             audit_offsets=dcn_audit_offsets)
 
     def forward(self, x_vq, x_residual):
         side = self.offset(torch.cat([x_vq, x_residual.to(x_vq.dtype)], dim=1))
@@ -146,13 +179,15 @@ class MultiScaleDecoder2(nn.Module):
         h = h + x_vq * (mean(h) / mean(x_vq))
     final: GroupNorm -> swish -> residual_conv(ch -> 3).
 
-    ``dcn_impl`` / ``dcn_max_offset`` accept a scalar (shared by both warps) or a
+    The four ``dcn_*`` knobs accept a scalar (shared by both warps) or a
     2-sequence indexed by warp id (warp 0 = quarter-res level, warp 1 = half-res).
     """
 
     def __init__(self, ch=128, out_ch=3, ch_mult: Sequence[int] = (1, 2, 4), num_res_blocks=2,
                  attn_resolutions: Sequence[int] = (64,), dropout=0.0, resolution=256,
-                 z_channels=3, warp_mode="dcn", dcn_impl: Any = "xla", dcn_max_offset: Any = 2):
+                 z_channels=3, warp_mode="dcn", dcn_impl: Any = "xla", dcn_max_offset: Any = 2,
+                 dcn_hybrid_capacity: Any = 0.125, dcn_hybrid_tail_offset: Any = 8,
+                 dcn_audit_offsets=False):
         super().__init__()
         self.num_resolutions = len(ch_mult)
         self.num_res_blocks = num_res_blocks
@@ -177,9 +212,12 @@ class MultiScaleDecoder2(nn.Module):
                     level.attn.append(AttnBlock(block_in))
             if i_level != 2:
                 w = 1 - i_level
-                warps[w] = WarpBlock(block_in, warp_mode=warp_mode,
-                                     dcn_impl=_per_warp(dcn_impl, w),
-                                     dcn_max_offset=_per_warp(dcn_max_offset, w))
+                warps[w] = WarpBlock(
+                    block_in, warp_mode=warp_mode, dcn_impl=_per_warp(dcn_impl, w),
+                    dcn_max_offset=_per_warp(dcn_max_offset, w),
+                    dcn_hybrid_capacity=_per_warp(dcn_hybrid_capacity, w),
+                    dcn_hybrid_tail_offset=_per_warp(dcn_hybrid_tail_offset, w),
+                    dcn_audit_offsets=dcn_audit_offsets)
                 mixes[w] = Mix(m=-1.0 if i_level == 1 else -0.6)
             if i_level != 0:
                 level.upsample = Upsample(block_in, True)
@@ -210,6 +248,14 @@ class MultiScaleDecoder2(nn.Module):
             if i_level != 0:
                 h = level.upsample(h)
         return self.residual_conv(swish(self.norm_out(h)))
+
+    def configure_dcn(self, dcn_impl, dcn_max_offset, dcn_hybrid_capacity=0.125,
+                      dcn_hybrid_tail_offset=8):
+        """Re-dispatch both packs in place (scalars or per-warp 2-sequences)."""
+        for w, warp in enumerate(self.warp):
+            warp.dcn.configure(_per_warp(dcn_impl, w), _per_warp(dcn_max_offset, w),
+                               _per_warp(dcn_hybrid_capacity, w),
+                               _per_warp(dcn_hybrid_tail_offset, w))
 
     def dcn_overflow(self):
         """Per-warp ``dcn_overflow`` tensors of the last forward (None for exact impls)."""

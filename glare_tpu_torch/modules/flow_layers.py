@@ -10,6 +10,8 @@ is not ported yet; parameters come from a checkpoint or the seeded init.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -23,6 +25,24 @@ def pixels(x):
 def sum_per_sample(x):
     """Sum over all non-batch axes -> [B]."""
     return x.sum(dim=tuple(range(1, x.dim())))
+
+
+LOG2PI = math.log(2 * math.pi)
+
+
+class GaussianDiag:
+    """Diagonal-Gaussian likelihood helpers; ``logs`` may be a float."""
+
+    @staticmethod
+    def likelihood(mean, logs, x):
+        if mean is None and logs is None:
+            return -0.5 * (x ** 2 + LOG2PI)
+        logs = torch.as_tensor(logs, dtype=x.dtype, device=x.device)
+        return -0.5 * (logs * 2.0 + ((x - mean) ** 2) / torch.exp(logs * 2.0) + LOG2PI)
+
+    @staticmethod
+    def logp(mean, logs, x):
+        return sum_per_sample(GaussianDiag.likelihood(mean, logs, x))
 
 
 def split_feature_cross(h):

@@ -6,19 +6,10 @@ constructs it.
 
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 
-from .flow_layers import Conv2dZeros, split_feature_cross, sum_per_sample
-
-LOG2PI = math.log(2 * math.pi)
-
-
-def gaussian_logp(mean, logs, x):
-    ll = -0.5 * (logs * 2.0 + ((x - mean) ** 2) / torch.exp(logs * 2.0) + LOG2PI)
-    return sum_per_sample(ll)
+from .flow_layers import Conv2dZeros, GaussianDiag, split_feature_cross
 
 
 class Split2d(nn.Module):
@@ -42,7 +33,7 @@ class Split2d(nn.Module):
             mean, logs = self.split2d_prior(z1, ft)
             eps_out = (z2 - mean) / torch.exp(logs + self.logs_eps)
             if logdet is not None:
-                logdet = logdet + gaussian_logp(mean, logs + self.logs_eps, z2)
+                logdet = logdet + GaussianDiag.logp(mean, logs + self.logs_eps, z2)
             return z1, logdet, eps_out
         z1 = z
         mean, logs = self.split2d_prior(z1, ft)
@@ -53,5 +44,5 @@ class Split2d(nn.Module):
         z2 = mean + torch.exp(logs + self.logs_eps) * eps
         z = torch.cat([z1, z2], dim=1)
         if logdet is not None:
-            logdet = logdet - gaussian_logp(mean, logs + self.logs_eps, z2)
+            logdet = logdet - GaussianDiag.logp(mean, logs + self.logs_eps, z2)
         return z, logdet, None

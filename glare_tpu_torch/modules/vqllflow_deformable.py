@@ -30,19 +30,39 @@ class VQLLFLOWDeformable(nn.Module):
     def __init__(self, K=12, L=2, additional_flow_no_affine=2, hidden_channels=64,
                  coupling="CondAffineSeparatedAndCond", quant=32.0, warp_mode="dcn",
                  dcn_impl: Any = "xla", dcn_max_offset: Any = 2,
+                 dcn_hybrid_capacity: Any = 0.125, dcn_hybrid_tail_offset: Any = 8,
                  # structural miniaturization knobs (shipped geometry 2/2/128/128): the
                  # tests shrink all of them together with the VQGAN's ch
                  enc_num_res_blocks=2, dec_num_res_blocks=2, decoder_ch=128, enc_ch=128):
         super().__init__()
         self.quant = quant
         self.dcn_impl, self.dcn_max_offset = dcn_impl, dcn_max_offset
+        self.dcn_hybrid_capacity = dcn_hybrid_capacity
+        self.dcn_hybrid_tail_offset = dcn_hybrid_tail_offset
         self.RRDB = ConEncoder1(ch=enc_ch, num_res_blocks=enc_num_res_blocks)
         self.flowUpsamplerNet = FlowUpsamplerNet(
             K=K, L=L, additional_flow_no_affine=additional_flow_no_affine,
             hidden_channels=hidden_channels, flow_coupling=coupling)
         self.deformable_decoder = MultiScaleDecoder2(
             ch=decoder_ch, num_res_blocks=dec_num_res_blocks, warp_mode=warp_mode,
-            dcn_impl=dcn_impl, dcn_max_offset=dcn_max_offset)
+            dcn_impl=dcn_impl, dcn_max_offset=dcn_max_offset,
+            dcn_hybrid_capacity=dcn_hybrid_capacity,
+            dcn_hybrid_tail_offset=dcn_hybrid_tail_offset)
+
+    def configure_dcn(self, **knobs):
+        """Change any of ``dcn_impl`` / ``dcn_max_offset`` / ``dcn_hybrid_capacity`` /
+        ``dcn_hybrid_tail_offset`` (scalar or per-warp pair) and re-dispatch the two
+        DCN packs in place; the weights stay (what ``netG.clone(**knobs)`` does in
+        the JAX package)."""
+        names = ("dcn_impl", "dcn_max_offset", "dcn_hybrid_capacity", "dcn_hybrid_tail_offset")
+        unknown = set(knobs) - set(names)
+        if unknown:
+            raise TypeError(f"configure_dcn: unknown knobs {sorted(unknown)}")
+        new = {n: knobs.get(n, getattr(self, n)) for n in names}
+        self.deformable_decoder.configure_dcn(**new)  # raises before anything is changed here
+        for n, v in new.items():
+            setattr(self, n, v)
+        return self
 
     def set_compute_dtype(self, dtype):
         cast_convs_(self.RRDB, dtype)

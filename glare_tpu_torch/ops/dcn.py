@@ -23,6 +23,25 @@ zero. The contraction uses the weight flattened as ``[K, G, Cg, O] -> [9*C, O]``
   * :func:`modulated_deform_conv` -- dispatch by where the tensors lie: CUDA
     tensors launch the kernel (or raise), CPU tensors take the plain version.
 
+The cascade (counterpart of ``modulated_deform_conv_pallas_cascade``; used by
+``dcn_impl: hybrid``): a base result with every offset clamped to +-R, and the
+row blocks that hold a tap beyond R -- the first ``n_sel`` of them in flat
+``(image, block)`` order -- recomputed whole at the wide clamp +-R_tail. Exact
+DCNv2 while no tap exceeds R_tail and the out-of-band blocks fit the slots; the
+two counters ``[blocks that did not fit, taps beyond R_tail]`` say when not.
+
+  * :func:`cascade_selection` -- which blocks are selected, and the counters:
+    plain torch ops on the device, no host sync.
+  * :func:`modulated_deform_conv_cascade_ref` -- plain version: two calls of the
+    plain op (clamp R, clamp R_tail) joined by ``torch.where`` on the selection.
+  * :func:`modulated_deform_conv_cascade_cuda` -- entry ``dcn_cascade_fwd`` of
+    ``csrc/dcn_fwd.cu``: ONE pass that clamps each pixel's taps at its image
+    row's radius (R_tail on rows of selected blocks, R elsewhere). On the TPU
+    the tail is a second, compacted launch because a pass costs (2R+1)^2 there;
+    a gather costs the same at any radius, so one pass does the same function
+    for the work of a plain one.
+  * :func:`modulated_deform_conv_cascade` -- dispatch as above.
+
 Numerics shared by both: sampling in float32, the sampled column rounded once
 to x's dtype, products accumulated in float32, bias added in float32, result
 cast to x's dtype.
@@ -41,7 +60,8 @@ import torch
 
 from . import _build
 
-launches = 0  # +1 per kernel launch, nowhere else
+launches = 0          # +1 per launch of dcn_fwd, nowhere else
+cascade_launches = 0  # +1 per launch of dcn_cascade_fwd, nowhere else
 
 _KY = (-1, -1, -1, 0, 0, 0, 1, 1, 1)
 _KX = (-1, 0, 1, -1, 0, 1, -1, 0, 1)
@@ -135,14 +155,17 @@ def _kernel():
         lib = _build.load("dcn_fwd")
         lib.dcn_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.dcn_fwd.restype = ctypes.c_int
+        lib.dcn_cascade_fwd.argtypes = lib.dcn_fwd.argtypes
+        lib.dcn_cascade_fwd.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def modulated_deform_conv_cuda(x, offset, mask, weight, bias=None, max_offset=None):
-    global launches
+def _launch(entry, x, offset, mask, weight, bias, radii):
+    """Check, make contiguous, allocate the output and call one C entry of
+    ``dcn_fwd.cu``; ``radii`` is that entry's float32 clamp table on the device."""
     if not (x.is_cuda and offset.is_cuda and mask.is_cuda and weight.is_cuda):
-        raise ValueError("modulated_deform_conv_cuda needs CUDA tensors")
+        raise ValueError(f"{entry} needs CUDA tensors")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
     B, H, W, C, O, G = _check(x, offset, mask, weight)
@@ -157,15 +180,21 @@ def modulated_deform_conv_cuda(x, offset, mask, weight, bias=None, max_offset=No
     if w2.data_ptr() % 32 != 0:  # wmma reads the weight in place: 32-byte aligned
         w2 = w2.clone()
     b = None if bias is None else bias.float().contiguous()
-    radii = clamp_table(max_offset, G).to(x.device).contiguous()
     out = torch.empty((B, H, W, O), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = _kernel().dcn_fwd(
+        err = getattr(_kernel(), entry)(
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(), w2.data_ptr(),
             None if b is None else b.data_ptr(), radii.data_ptr(), out.data_ptr(),
             B, H, W, C, O, G, int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "dcn_fwd")
+    _build.check(err, entry)
+    return out
+
+
+def modulated_deform_conv_cuda(x, offset, mask, weight, bias=None, max_offset=None):
+    global launches
+    radii = clamp_table(max_offset, offset.shape[3]).to(x.device).contiguous()
+    out = _launch("dcn_fwd", x, offset, mask, weight, bias, radii)
     launches += 1
     return out
 
@@ -175,3 +204,83 @@ def modulated_deform_conv(x, offset, mask, weight, bias=None, max_offset=None):
     if x.is_cuda:
         return modulated_deform_conv_cuda(x, offset, mask, weight, bias, max_offset)
     return modulated_deform_conv_ref(x, offset, mask, weight, bias, max_offset)
+
+
+# ------------------------------------------------------------- the cascade --
+
+def cascade_rows_per_block(tail_offset: int, rows_per_step: int = 16) -> int:
+    """Rows of one cascade block: ``rows_per_step``, at most 8 from R_tail 6 on
+    (the JAX package's ``_clamp_rpb``; it decides which blocks are selected)."""
+    return min(int(rows_per_step), 8) if int(tail_offset) >= 6 else int(rows_per_step)
+
+
+def cascade_slots(B: int, H: int, rows_per_block: int, capacity_frac: float):
+    """-> (blocks per image, n_sel). The TPU kernel appends one spare block to
+    every image and sizes its slots from that count; the port has no such block
+    but counts as if it had, or the selection would differ."""
+    n_rblk = -(-H // rows_per_block) + 1
+    n_blocks = B * n_rblk
+    n_sel = max(1, min(n_blocks, -(-int(n_blocks * capacity_frac) // 8) * 8))
+    return n_rblk, n_sel
+
+
+def cascade_selection(offset, max_offset=2, tail_offset=8, capacity_frac=0.125,
+                      rows_per_step=16):
+    """-> (row_selected bool [B, H], overflow int64 [2]) for the cascade.
+
+    A block of ``rows_per_block`` image rows is out of band when any tap in it
+    has ``max(|dy|, |dx|) > R``; the first ``n_sel`` such blocks in flat
+    ``(image, block)`` order are selected. ``overflow`` is
+    ``[out-of-band blocks - selected blocks, taps beyond R_tail]``. Torch ops
+    on ``offset``'s device; nothing is read back."""
+    R, Rt = int(max_offset), int(tail_offset)
+    if Rt <= R:
+        raise ValueError(f"tail_offset {Rt} must exceed max_offset {R}")
+    B, H = offset.shape[:2]
+    rpb = cascade_rows_per_block(Rt, rows_per_step)
+    n_rblk, n_sel = cascade_slots(B, H, rpb, capacity_frac)
+    linf = offset.float().abs().amax(dim=-1)                          # [B, H, W, G, K]
+    oob_row = (linf > R).flatten(2).any(dim=-1)                       # [B, H]
+    oob_blk = torch.nn.functional.pad(oob_row, (0, n_rblk * rpb - H)) \
+        .reshape(B, n_rblk, rpb).any(dim=2).reshape(-1)               # [B * n_rblk]
+    pos = torch.cumsum(oob_blk.to(torch.int64), dim=0) - 1
+    selected = oob_blk & (pos < n_sel)
+    row_selected = selected.reshape(B, n_rblk, 1).expand(B, n_rblk, rpb) \
+        .reshape(B, n_rblk * rpb)[:, :H]
+    overflow = torch.stack([oob_blk.sum() - selected.sum(), (linf > Rt).sum()])
+    return row_selected, overflow
+
+
+def modulated_deform_conv_cascade_ref(x, offset, mask, weight, bias=None, max_offset=2,
+                                      tail_offset=8, capacity_frac=0.125, rows_per_step=16,
+                                      return_overflow=False):
+    """Plain PyTorch cascade: the clamp-R result everywhere, the clamp-R_tail
+    result on the rows of the selected blocks."""
+    row_sel, overflow = cascade_selection(offset, max_offset, tail_offset, capacity_frac,
+                                          rows_per_step)
+    base = modulated_deform_conv_ref(x, offset, mask, weight, bias, max_offset=int(max_offset))
+    tail = modulated_deform_conv_ref(x, offset, mask, weight, bias, max_offset=int(tail_offset))
+    out = torch.where(row_sel[:, :, None, None], tail, base)
+    return (out, overflow) if return_overflow else out
+
+
+def modulated_deform_conv_cascade_cuda(x, offset, mask, weight, bias=None, max_offset=2,
+                                       tail_offset=8, capacity_frac=0.125, rows_per_step=16,
+                                       return_overflow=False):
+    global cascade_launches
+    row_sel, overflow = cascade_selection(offset, max_offset, tail_offset, capacity_frac,
+                                          rows_per_step)
+    row_radius = torch.where(row_sel, float(int(tail_offset)), float(int(max_offset))) \
+        .to(torch.float32).contiguous()                               # [B, H]
+    out = _launch("dcn_cascade_fwd", x, offset, mask, weight, bias, row_radius)
+    cascade_launches += 1
+    return (out, overflow) if return_overflow else out
+
+
+def modulated_deform_conv_cascade(x, offset, mask, weight, bias=None, max_offset=2,
+                                  tail_offset=8, capacity_frac=0.125, rows_per_step=16,
+                                  return_overflow=False):
+    """The DCN cascade: the kernel for CUDA tensors, the plain version on the CPU."""
+    fn = modulated_deform_conv_cascade_cuda if x.is_cuda else modulated_deform_conv_cascade_ref
+    return fn(x, offset, mask, weight, bias, max_offset, tail_offset, capacity_frac,
+              rows_per_step, return_overflow)

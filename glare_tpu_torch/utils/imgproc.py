@@ -1,5 +1,5 @@
 """Image IO and the GLARE preprocessing chain (the port's own copy of what the
-paired-inference CLI needs from ``glare_tpu/utils/imgproc.py``).
+inference CLIs need from ``glare_tpu/utils/imgproc.py``).
 
   * BGR->RGB reads, reflect padding (``impad``), the log-domain transform
     ``log(clamp(x + 1e-3, 1e-3))``, per-channel histogram equalization.
@@ -37,6 +37,16 @@ def imwrite(path, img_rgb):
 def impad(img, top=0, bottom=0, left=0, right=0):
     """Reflect-pad HWC."""
     return np.pad(img, [(top, bottom), (left, right), (0, 0)], "reflect")
+
+
+def auto_padding(img, times=16):
+    """Reflect-pad HWC (edge pixel repeated, as ``cv2.BORDER_REFLECT``) to a
+    multiple of ``times``; returns (padded, [h1, h2, w1, w2]). An image that is
+    already a multiple gets a full ``times`` more, as in the reference."""
+    h, w, _ = img.shape
+    h1, w1 = (times - h % times) // 2, (times - w % times) // 2
+    h2, w2 = (times - h % times) - h1, (times - w % times) - w1
+    return np.pad(img, [(h1, h2), (w1, w2), (0, 0)], "symmetric"), [h1, h2, w1, w2]
 
 
 def hiseq_color_cv2_img(img):

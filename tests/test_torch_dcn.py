@@ -125,8 +125,15 @@ def test_warpblock_matches_jax(impl):
 
 @pytest.mark.parametrize("impl", ["chain", "hybrid", "hybrid_gather"])
 def test_unported_impls_raise(impl):
+    if impl == "hybrid":  # the cascade is ported (tests/test_torch_dcn_cascade.py)
+        assert DCNv2Pack(8, 8, impl=impl).impl == "hybrid"
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         DCNv2Pack(8, 8, impl=impl)
+    pack = DCNv2Pack(8, 8, impl="xla")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        pack.configure(impl, 2)
+    assert pack.impl == "xla"
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

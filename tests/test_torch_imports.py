@@ -38,7 +38,22 @@ def _imports(tree, top_level_only):
 def test_sources_found():
     files = _sources()
     assert len(files) > 30
-    assert any(f.endswith("ops/_build.py") for f in files)
+    rel = {os.path.relpath(f, ROOT) for f in files}
+    assert {"chip_smoke.py", "glare_tpu_torch/ops/_build.py", "glare_tpu_torch/ops/dcn.py",
+            "glare_tpu_torch/modules/llflow_vqgan2.py", "glare_tpu_torch/models/llflow_model.py",
+            "glare_tpu_torch/cli/infer_paired.py", "glare_tpu_torch/cli/infer_unpaired.py",
+            "glare_tpu_torch/cli/test_stages.py"} <= rel
+
+
+def test_the_cascade_entry_is_exported_beside_the_plain_one():
+    from glare_tpu_torch.ops import dcn
+
+    for name in ("modulated_deform_conv_cascade", "modulated_deform_conv_cascade_ref",
+                 "modulated_deform_conv_cascade_cuda", "cascade_selection"):
+        assert callable(getattr(dcn, name)), name
+    assert isinstance(dcn.launches, int) and isinstance(dcn.cascade_launches, int)
+    src = open(os.path.join(PKG, "csrc", "dcn_fwd.cu")).read()
+    assert 'extern "C" int dcn_cascade_fwd(' in src and 'extern "C" int dcn_fwd(' in src
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))

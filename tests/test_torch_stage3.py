@@ -3,10 +3,15 @@ package's three-step pipeline (latent_half -> VQModel.decode -> aft_half) with
 the same carried weights, on the CPU.
 
 Small configuration: 32x32 input, ch=32, one res-block per level, K=2, L=1,
-n_embed=64, float32, for ``dcn_impl`` 'xla' (exact) and 'pallas' (clamped at 2).
-The JAX side of 'pallas' runs 'chain', its XLA formulation of the same clamped
-op (the Pallas kernel needs a TPU or minutes of interpret mode at this size; it
-is held against the port's op in tests/test_torch_dcn.py).
+n_embed=64, float32, for ``dcn_impl`` 'xla' (exact), 'pallas' (clamped at 2) and
+'hybrid' (the cascade). The JAX side of 'pallas' runs 'chain', its XLA
+formulation of the same clamped op (the Pallas kernel needs a TPU or minutes of
+interpret mode at this size; it is held against the port's op in
+tests/test_torch_dcn.py). The JAX side of 'hybrid' runs 'xla': the Mosaic cascade
+cannot run on the CPU in reasonable time at this size, so the port's cascade is
+configured with capacity 1.0 and R_tail 16, above every offset of these weights
+-- then both its counters are zero and it IS exact DCNv2 (the cascade itself is
+held against the Pallas one in tests/test_torch_dcn_cascade.py).
 
 Tolerance: 1e-3 relative to the largest output pixel. Both sides are float32;
 the path is ~60 convolutions, 8 group norms per stage, an 8-step invertible
@@ -35,7 +40,8 @@ def _opt(dcn_impl):
     return {
         "model": "VQLLFLOWD", "is_train": False,
         "network_G": {"which_model_G": "VQLLFLOWDeformable", "dcn_impl": dcn_impl,
-                      "dcn_max_offset": 2,
+                      "dcn_max_offset": 2, "dcn_hybrid_capacity": 1.0,
+                      "dcn_hybrid_tail_offset": 16,
                       "flow": {"K": 2, "L": 1, "additionalFlowNoAffine": 2}, **MINI},
         "network_VQGAN": {"type": "VQModel", **VQ},
         "train": {"manual_seed": 1},
@@ -72,8 +78,10 @@ def _jax_side(dcn_impl, lq, rng):
     return net_p, vq_p, np.asarray(rec), np.asarray(lat), [np.asarray(c) for c in code]
 
 
-@pytest.mark.parametrize("dcn_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("dcn_impl", ["xla", "pallas", "hybrid"])
 def test_get_sr_matches_jax(dcn_impl):
+    """'hybrid' is held against JAX 'xla' with capacity 1.0 and every offset
+    inside R_tail, where the cascade is exact DCNv2 (see the module docstring)."""
     rng = np.random.default_rng(7)
     lq = np.log(np.clip(rng.uniform(0, 0.2, (2, 32, 32, 3)) + 1e-3, 1e-3, None)).astype(np.float32)
     net_p, vq_p, jrec, jlat, jcode = _jax_side("chain" if dcn_impl == "pallas" else "xla", lq, rng)
@@ -97,6 +105,13 @@ def test_get_sr_matches_jax(dcn_impl):
     ov = model.last_dcn_overflow()
     if dcn_impl == "pallas":
         assert ov is not None and ov["overflow_blocks"] == 0 and ov["taps_beyond_tail"] > 0
+    elif dcn_impl == "hybrid":
+        assert ov == {"overflow_blocks": 0, "taps_beyond_tail": 0}
+        model.netG.configure_dcn(dcn_hybrid_capacity=1 / 64, dcn_hybrid_tail_offset=3)
+        sr2 = model.get_sr(lq)
+        ov = model.last_dcn_overflow()
+        assert ov["overflow_blocks"] > 0 and ov["taps_beyond_tail"] > 0
+        assert rel_err(sr2.numpy(), jrec) > 1e-3
     else:
         assert ov is None
 
@@ -109,16 +124,20 @@ def test_entry_points_need_an_explicit_cpu():
 
 
 def test_unported_parts_raise_with_a_pointer():
-    opt = _opt("hybrid")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        create_model(opt, device="cpu")
+    for dcn_impl in ("chain", "hybrid_gather"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            create_model(_opt(dcn_impl), device="cpu")
     opt = _opt("xla")
     opt["is_train"] = True
-    opt["network_G"]["dcn_impl"] = "xla"
     with pytest.raises(NotImplementedError, match="not ported yet"):
         create_model(opt, device="cpu")
-    with pytest.raises(NotImplementedError):
-        create_model({**_opt("xla"), "model": "LLFlow"}, device="cpu")
+    # ported since: the cascade and the stage-2 model build
+    assert create_model(_opt("hybrid"), device="cpu").netG.dcn_impl == "hybrid"
+    stage2 = {**_opt("xla"), "model": "LLFlow"}
+    stage2["network_G"] = {**stage2["network_G"], "which_model_G": "LLFlowVQGAN2"}
+    assert type(create_model(stage2, device="cpu")).__name__ == "LLFlowModel"
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        create_model({**stage2, "is_train": True}, device="cpu")
 
 
 def test_get_z_and_get_sr_with_z_shapes():
