@@ -5,10 +5,16 @@
 
 Phases, each printing one JSON line:
   device     the card (nvidia-smi name + power limit), torch / CUDA versions
-  build      compiles csrc/*.cu with nvcc (one process per source) and loads them
+  build      compiles the four csrc/*.cu with nvcc (one process per source, all
+             started together) and loads them; ptxas registers, spills and shared
+             memory of the Hopper attention kernel (spills fail the run)
   kernels    every hand-written kernel against its plain PyTorch version on the
              card, at the shapes the main path gives it and at small ragged
-             shapes; times by CUDA events (median after a warm-up)
+             shapes; times by CUDA events (median after a warm-up). Attention:
+             the entry the wrapper picks for each case (hopper for bf16 C = 512,
+             wmma for other bf16 widths, f32), the earlier wmma entry timed beside
+             the hopper one at the main shape, and SDPA under each backend as
+             the yardstick
   main_path  stage-3 paired inference at the full width of confs/LOL.yml
              (bf16, 620x420, dcn_impl pallas / clamp 2, seeded random weights):
              two single-image requests and one batch of two through
@@ -22,7 +28,9 @@ Phases, each printing one JSON line:
   stage2_path  stage-2 inference at the full width of confs/train_stage2_LOL.yml
              (bf16, 600x400): LLFlowModel.get_sr -> decode_latent, the same
              stage-wise comparison
-Every path is driven with the launch counts set to 0 just before and read just after.
+Every path is driven with the launch counts (attention: one per entry) set to 0
+just before and read just after; every attention launch of a path must land on
+the hopper entry.
 Then the contract lines: {"kernels": [...]}, the card line, and last
 {"ok": true, "device": {...}}. Any failure raises: non-zero exit, no last line.
 
@@ -35,6 +43,7 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -133,10 +142,20 @@ def phase_build():
         _build.load(name)
     regs = {}
     for name, log in _build.build_log.items():
-        regs[name] = [ln.strip() for ln in log.splitlines() if "registers" in ln][:12]
+        regs[name] = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln][:16]
+    hopper = {"smem_bytes": attn_ops.hopper_smem_bytes()}
+    log = _build.build_log.get("attn_hopper")
+    if log is not None:  # built by this process: read ptxas -v for the Hopper kernel
+        m_regs = re.search(r"Used (\d+) registers", log)
+        m_spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+        require(m_regs is not None and m_spill is not None, "no ptxas report for attn_hopper")
+        hopper.update(registers=int(m_regs.group(1)), spill_store_bytes=int(m_spill.group(1)),
+                      spill_load_bytes=int(m_spill.group(2)))
+        require(hopper["spill_store_bytes"] == 0 and hopper["spill_load_bytes"] == 0,
+                f"attn_hopper spills registers: {hopper}")
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
           "nvcc_seconds": round(_build.build_seconds, 2),
-          "libraries": sorted(paths), "ptxas": regs})
+          "libraries": sorted(paths), "ptxas": regs, "attn_hopper": hopper})
 
 
 def vq_gap(z, e, got, want):
@@ -209,25 +228,62 @@ def check_vq():
             "cases": out}
 
 
+def _sdpa_by_backend(q, k, v, n_true, want):
+    """The yardstick: one F.scaled_dot_product_attention call on the real keys,
+    under each backend of torch.nn.attention.sdpa_kernel. -> {backend: ms, or
+    the reason it refused}. The port never calls SDPA."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    q4, k4, v4 = q[:, None], k[:, None, :n_true].contiguous(), v[:, None, :n_true].contiguous()
+    out = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            out[name.lower()] = {"refused": "not in this PyTorch"}
+            continue
+        fn = lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)  # noqa: E731
+        try:
+            with sdpa_kernel([backend]):
+                got = fn()
+                torch.cuda.synchronize()
+                err = float((got[:, 0, :n_true].float() - want).abs().max())
+                out[name.lower()] = {"ms": time_ms(fn, reps=3, warmup=1), "max_abs_err_vs_plain": err}
+        except RuntimeError as ex:  # a backend may refuse head dim 512
+            out[name.lower()] = {"refused": str(ex).splitlines()[0][:160]}
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_attn():
+    """The attention entries against flash_attention_nhc_ref. Tolerance for bf16:
+    kernel and plain version cast at the same points, so they differ by
+    summation order and exp2 rounding, i.e. by last-bit flips of the bf16
+    probabilities and output: 2^-7 of the largest output (one to two bf16 ulps);
+    4x that against a float64 dense oracle on 64 queries. float32: 5e-5 (exp2f
+    vs torch.exp2 and the order of sums)."""
     rng = np.random.default_rng(1)
     cases = {}
-    # main-path shape: one image's 16275 tokens padded to 16384, C = 512, bf16.
-    # Tolerance: kernel and plain version cast at the same points, so they differ
-    # by summation order and exp2 rounding, i.e. by last-bit flips of the bf16
-    # probabilities and output: two bf16 ulps (2^-7) of the largest output.
+
+    def compare(tag, q, k, v, nt, entry, tl=None):
+        before = dict(attn_ops.launches_by_entry)
+        got = attn_ops.flash_attention_nhc_cuda(q, k, v, n_true=nt, entry=entry)
+        torch.cuda.synchronize()
+        moved = {e: attn_ops.launches_by_entry[e] - before[e] for e in before}
+        want_entry = entry or attn_ops.route(q)
+        require(moved == {e: int(e == want_entry) for e in before}, f"attn {tag}: entry counts {moved}")
+        want = attn_ops.flash_attention_nhc_ref(q, k, v, n_true=nt)
+        g, w = got[:, :nt].float(), want[:, :nt].float()
+        require(bool(torch.isfinite(got.float()).all()), f"attn {tag}: non-finite output")
+        err = float((g - w).abs().max())
+        tol = tl if tl is not None else 2.0 ** -7 * float(w.abs().max())
+        cases[tag] = {"entry": want_entry, "max_abs_err": err, "tol": tol}
+        require(err <= tol, f"attn {tag}: {err} > {tol}")
+        return got, w, tol
+
+    # main-path shape: one image's 16275 tokens padded to 16384, C = 512, bf16
     q, k, v = [dev(rng.standard_normal((1, N_PAD, 512)).astype(np.float32), torch.bfloat16)
                for _ in range(3)]
-    got = attn_ops.flash_attention_nhc_cuda(q, k, v, n_true=N_TOK)
-    torch.cuda.synchronize()
-    want = attn_ops.flash_attention_nhc_ref(q, k, v, n_true=N_TOK)
-    g, w = got[:, :N_TOK].float(), want[:, :N_TOK].float()
-    require(bool(torch.isfinite(g).all()), "attn bf16: non-finite output")
-    err = float((g - w).abs().max())
-    ref_max = float(w.abs().max())
-    tol = 2.0 ** -7 * ref_max
-    cases["bf16[1,16384,512] n_true=16275"] = {"max_abs_err": err, "tol": tol, "ref_max": ref_max}
-    require(err <= tol, f"attn bf16 main shape: {err} > {tol}")
+    got, w, tol = compare("bf16[1,16384,512] n_true=16275", q, k, v, N_TOK, None)
+    err = cases["bf16[1,16384,512] n_true=16275"]["max_abs_err"]
     # dense float64 oracle on a slice of queries (independent of the tiling)
     qs = q[:, 5000:5064].double()
     s = (qs @ k[:, :N_TOK].double().transpose(1, 2)) * 512 ** -0.5
@@ -235,41 +291,43 @@ def check_attn():
     err64 = float((got[:, 5000:5064].double() - dense).abs().max())
     cases["bf16 vs float64 dense, 64 queries"] = {"max_abs_err": err64, "tol": 4 * tol}
     require(err64 <= 4 * tol, f"attn bf16 vs dense oracle: {err64}")
+    # the earlier wmma kernel (csrc/attn_fused.cu) at the same shape, for its time
+    compare("bf16[1,16384,512] n_true=16275, wmma entry", q, k, v, N_TOK, "wmma")
 
-    # small ragged shapes; f32 tolerance 5e-5: exp2f vs torch.exp2 and order of sums
-    for (b, n, c, nt, dt, tl) in [(2, 333, 96, 301, torch.float32, 5e-5),
-                                  (2, 200, 64, 200, torch.float32, 5e-5),
-                                  (2, 333, 96, 301, torch.bfloat16, None),
-                                  (1, 130, 256, 97, torch.bfloat16, None)]:
+    # batch 2 at the main shape, and small ragged shapes through whichever entry
+    # the wrapper picks (C = 512 -> hopper, other bf16 -> wmma, f32 -> f32)
+    plan = [(2, N_PAD, 512, N_TOK, torch.bfloat16, None),
+            (1, 2100, 512, 2047, torch.bfloat16, None),   # a query tile partly past n
+            (1, 130, 512, 97, torch.bfloat16, None),
+            (2, 333, 96, 301, torch.float32, 5e-5),
+            (2, 200, 64, 200, torch.float32, 5e-5),
+            (2, 333, 96, 301, torch.bfloat16, None),
+            (1, 130, 128, 97, torch.bfloat16, None),
+            (1, 130, 256, 97, torch.bfloat16, None)]
+    for (b, n, c, nt, dt, tl) in plan:
         qq, kk, vv = [dev(rng.standard_normal((b, n, c)).astype(np.float32), dt) for _ in range(3)]
-        o = attn_ops.flash_attention_nhc_cuda(qq, kk, vv, n_true=nt)
-        torch.cuda.synchronize()
-        r = attn_ops.flash_attention_nhc_ref(qq, kk, vv, n_true=nt)
-        e_ = float((o[:, :nt].float() - r[:, :nt].float()).abs().max())
-        t_ = tl if tl is not None else 2.0 ** -7 * float(r[:, :nt].float().abs().max())
-        cases[f"{str(dt).split('.')[-1]}[{b},{n},{c}] n_true={nt}"] = {"max_abs_err": e_, "tol": t_}
-        require(e_ <= t_, f"attn small case {(b, n, c, nt, dt)}: {e_} > {t_}")
+        compare(f"{str(dt).split('.')[-1]}[{b},{n},{c}] n_true={nt}", qq, kk, vv, nt, None, tl)
+        del qq, kk, vv
+    torch.cuda.empty_cache()
 
-    ms = time_ms(lambda: attn_ops.flash_attention_nhc_cuda(q, k, v, n_true=N_TOK), reps=5)
+    ms = time_ms(lambda: attn_ops.flash_attention_nhc_cuda(q, k, v, n_true=N_TOK), reps=10)
+    wmma_ms = time_ms(lambda: attn_ops.flash_attention_nhc_cuda(q, k, v, n_true=N_TOK, entry="wmma"),
+                      reps=5)
     plain = time_ms(lambda: attn_ops.flash_attention_nhc_ref(q, k, v, n_true=N_TOK), reps=3, warmup=1)
-    lib = None
-    try:
-        q4, k4, v4 = q[:, None], k[:, None, :N_TOK].contiguous(), v[:, None, :N_TOK].contiguous()
-        fn = lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)  # noqa: E731
-        ref_lib = fn()
-        torch.cuda.synchronize()
-        lib_err = float((ref_lib[:, 0, :N_TOK].float() - w).abs().max())
-        cases["library sdpa vs plain"] = {"max_abs_err": lib_err}
-        lib = time_ms(fn, reps=3, warmup=1)
-    except Exception as ex:  # the yardstick only: head dim 512 may be refused
-        cases["library sdpa"] = {"refused": str(ex)[:200]}
+    sdpa = _sdpa_by_backend(q, k, v, N_TOK, w)
+    accepted = {name: r["ms"] for name, r in sdpa.items() if "ms" in r}
+    lib = min(accepted.values()) if accepted else None
     flops = 4.0 * N_TOK * N_TOK * 512
     b_ms, b_by = bound(flops, PEAK_BF16, 2.0 * 4 * N_TOK * 512)
-    return {"name": "attn_fused", "route": "cuda", "source": "glare_tpu_torch/csrc/attn_fused.cu",
+    return {"name": "attn_hopper", "route": "cuda", "source": "glare_tpu_torch/csrc/attn_hopper.cu",
             "replaces": "glare_tpu/ops/attn_pallas.py:44", "max_abs_err": err,
             "tol": f"2^-7 * max|ref| = {tol:.4g} (bf16 last-bit flips, summation order)",
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-            "achieved_tflops": flops / ms / 1e9, "cases": cases}
+            "library_call": "F.scaled_dot_product_attention, fastest backend that takes head dim 512",
+            "achieved_tflops": flops / ms / 1e9, "smem_bytes": attn_ops.hopper_smem_bytes(),
+            "earlier": {"name": "attn_fused (wmma entry)", "source": "glare_tpu_torch/csrc/attn_fused.cu",
+                        "ms": wmma_ms, "achieved_tflops": flops / wmma_ms / 1e9},
+            "sdpa_by_backend": sdpa, "cases": cases}
 
 
 def _dcn_inputs(rng, B, H, W, C, G, O, dtype, spread):
@@ -379,8 +437,8 @@ def check_dcn_cascade():
                 before = counters()
                 got, ov = dcn_ops.modulated_deform_conv_cascade_cuda(*a, return_overflow=True, **kw)
                 torch.cuda.synchronize()
-                require(moved_since(before) == {"vq_argmin": 0, "attn_fused": 0, "dcn_fwd": 0,
-                                                "dcn_cascade": 1}, f"cascade {tag}: counters")
+                require(moved_since(before) == {**{k: 0 for k in before}, "dcn_cascade": 1},
+                        f"cascade {tag}: counters")
                 want, wov = dcn_ops.modulated_deform_conv_cascade_ref(*a, return_overflow=True, **kw)
                 require(got.shape == want.shape and got.dtype == dt, f"cascade {tag}: bad output")
                 require(bool(torch.isfinite(got.float()).all()), f"cascade {tag}: non-finite")
@@ -489,12 +547,17 @@ def seeded_image(seed, batch=1, h=H_IN, w=W_IN):
 
 
 def counters():
-    return {"vq_argmin": vq_ops.launches, "attn_fused": attn_ops.launches,
+    by_entry = attn_ops.launches_by_entry
+    require(attn_ops.launches == sum(by_entry.values()), "attention counts disagree")
+    return {"vq_argmin": vq_ops.launches, "attn_hopper": by_entry["hopper"],
+            "attn_wmma": by_entry["wmma"], "attn_f32": by_entry["f32"],
             "dcn_fwd": dcn_ops.launches, "dcn_cascade": dcn_ops.cascade_launches}
 
 
 def reset_counters():
     vq_ops.launches = attn_ops.launches = dcn_ops.launches = dcn_ops.cascade_launches = 0
+    for entry in attn_ops.launches_by_entry:
+        attn_ops.launches_by_entry[entry] = 0
 
 
 def moved_since(before):
@@ -577,7 +640,8 @@ def phase_main_path():
     model = create_model(lol_opt(), device="cuda")
     temper_offset_heads(model.netG, seed=7, std=0.02)
     build_s = time.time() - t0
-    expected = {"vq_argmin": 1, "attn_fused": 11, "dcn_fwd": 2, "dcn_cascade": 0}
+    expected = {"vq_argmin": 1, "attn_hopper": 11, "attn_wmma": 0, "attn_f32": 0,
+                "dcn_fwd": 2, "dcn_cascade": 0}
 
     # warm-up request (cuDNN autotuning, allocator), not counted
     model.get_sr(dev(seeded_image(99)))
@@ -693,7 +757,8 @@ def phase_hybrid_path():
         return m
 
     model = build("hybrid")          # conf defaults: R 2, R_tail 8, capacity 0.125
-    per_call = {"vq_argmin": 1, "attn_fused": 11, "dcn_fwd": 0, "dcn_cascade": 2}
+    per_call = {"vq_argmin": 1, "attn_hopper": 11, "attn_wmma": 0, "attn_f32": 0,
+                "dcn_fwd": 0, "dcn_cascade": 2}
     model.get_sr(dev(seeded_image(99)))   # warm-up, not counted
     torch.cuda.synchronize()
     reset_counters()
@@ -767,6 +832,7 @@ def phase_hybrid_path():
                                                      tag="request after the audit"))
     moved = moved_since(before)
     require(moved["dcn_fwd"] + moved["dcn_cascade"] == 2 * n_calls[0]
+            and moved["attn_hopper"] == 11 * n_calls[0] and moved["attn_wmma"] == moved["attn_f32"] == 0
             and bool(torch.isfinite(sr).all()),
             f"request under the audited configuration: {moved} over {n_calls[0]} get_sr calls")
     require(ov == {"overflow_blocks": 0, "taps_beyond_tail": 0},
@@ -809,7 +875,8 @@ def phase_stage2_path():
     build_s = time.time() - t0
     # attention: 3 blocks in ConEncoder1 + 4 in the VQGAN decoder, each above the
     # 8192-token threshold at 15000 tokens; one codebook retrieval
-    per_call = {"vq_argmin": 1, "attn_fused": 7, "dcn_fwd": 0, "dcn_cascade": 0}
+    per_call = {"vq_argmin": 1, "attn_hopper": 7, "attn_wmma": 0, "attn_f32": 0,
+                "dcn_fwd": 0, "dcn_cascade": 0}
     model.decode_latent(model.get_sr(dev(seeded_image(98, 1, H2, W2))))   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -872,7 +939,8 @@ def phase_stage2_path():
 
 def _category(name):
     n = name.lower()
-    for key, cat in (("attn_bf16_kernel", "attn_fused (this repo)"), ("attn_f32_kernel", "attn_fused (this repo)"),
+    for key, cat in (("attn_hopper_kernel", "attention (this repo)"),
+                     ("attn_bf16_kernel", "attention (this repo)"), ("attn_f32_kernel", "attention (this repo)"),
                      ("dcn_bf16_kernel", "dcn_fwd (this repo)"), ("dcn_f32_kernel", "dcn_fwd (this repo)"),
                      ("vq_argmin", "vq_argmin (this repo)"),
                      ("groupnorm", "group norm"), ("group_norm", "group norm"), ("rowwisemoments", "group norm"),
@@ -922,7 +990,7 @@ def phase_profile(model):
           "top_kernels_ms": top})
 
 
-PATHS = {"vq_argmin": "main_path", "attn_fused": "main_path", "dcn_fwd": "main_path",
+PATHS = {"vq_argmin": "main_path", "attn_hopper": "main_path", "dcn_fwd": "main_path",
          "dcn_cascade": "hybrid_path"}   # the path whose count a kernel's "launches" reports
 ALL_PHASES = "device,build,kernels,main_path,hybrid_path,stage2_path"
 
@@ -962,7 +1030,9 @@ def main():
         k["launches_by_path"] = {path: c[k["name"]] for path, c in counts.items()}
         k["launches"] = k["launches_by_path"][PATHS[k["name"]]]
         require(k["launches"] > 0, f"kernel {k['name']} was never launched on {PATHS[k['name']]}")
-    emit({"kernels": [{key: k[key] for key in keys} for k in kernels]})
+    extras = ("library_call", "smem_bytes", "earlier", "sdpa_by_backend")
+    emit({"kernels": [{**{key: k[key] for key in keys}, **{key: k[key] for key in extras if key in k}}
+                      for k in kernels]})
     emit({"seconds": round(time.time() - t_start, 1)})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

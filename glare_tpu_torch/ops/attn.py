@@ -8,13 +8,18 @@ is ``[B, N, C]`` in q's dtype.
     softmax in float32 with the kernel's cast points (scale*log2(e) folded
     into q in f32 then cast back, exp2, probabilities cast to v's dtype before
     the PV product, keys >= ``n_true`` masked to -1e30).
-  * :func:`flash_attention_nhc_cuda` -- the hand-written kernel
-    ``csrc/attn_fused.cu`` (replaces the Pallas ``_kernel`` / ``_kernel_pipe``).
+  * :func:`flash_attention_nhc_cuda` -- the hand-written kernels that replace
+    the Pallas ``_kernel`` / ``_kernel_pipe``, one of three entries chosen by
+    :func:`route` from dtype and head dimension before the launch:
+    ``hopper`` (``csrc/attn_hopper.cu``: TMA + wgmma, warp-specialised; bf16,
+    C = 512, every attention block of the model), ``wmma``
+    (``csrc/attn_fused.cu``: other bf16 widths, C % 16 == 0, C <= 512) and
+    ``f32`` (``csrc/attn_fused.cu``: float32).
   * :func:`flash_attention_nhc` -- dispatch by where the tensors lie: CUDA
-    tensors launch the kernel (or raise), CPU tensors take the plain version.
+    tensors launch a kernel (or raise), CPU tensors take the plain version.
 
-What bounds the kernel on an H100: tensor-core operations, ``4*B*N*N*C`` FLOP;
-the design notes are in the CUDA source.
+What bounds the kernels on an H100: tensor-core operations, ``4*B*N*N*C``
+FLOP; the design notes are in the CUDA sources.
 """
 
 from __future__ import annotations
@@ -26,7 +31,10 @@ import torch
 
 from . import _build
 
-launches = 0  # +1 per kernel launch, nowhere else
+launches = 0  # +1 per kernel launch (any entry), nowhere else
+launches_by_entry = {"hopper": 0, "wmma": 0, "f32": 0}  # +1 per launch of that entry
+
+HOPPER_C = 512  # the one head dimension the Hopper entry serves
 
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
@@ -60,21 +68,43 @@ def flash_attention_nhc_ref(q, k, v, n_true: Optional[int] = None, bk: int = 102
     return (acc / l).to(q.dtype)
 
 
-_lib = None
+_entries = None
 
 
-def _kernel():
-    global _lib
-    if _lib is None:
-        lib = _build.load("attn_fused")
-        for fn in (lib.attn_fused_bf16, lib.attn_fused_f32):
+def _kernels() -> dict:
+    """entry name -> ctypes function (all three share one C signature)."""
+    global _entries
+    if _entries is None:
+        fused, hopper = _build.load("attn_fused"), _build.load("attn_hopper")
+        entries = {"hopper": hopper.attn_hopper_bf16, "wmma": fused.attn_fused_bf16,
+                   "f32": fused.attn_fused_f32}
+        for fn in entries.values():
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _entries = entries
+    return _entries
 
 
-def flash_attention_nhc_cuda(q, k, v, n_true: Optional[int] = None):
+def hopper_smem_bytes() -> int:
+    """Dynamic shared memory a block of the Hopper entry asks for."""
+    lib = _build.load("attn_hopper")
+    lib.attn_hopper_smem_bytes.restype = ctypes.c_int
+    return int(lib.attn_hopper_smem_bytes())
+
+
+def route(q: torch.Tensor) -> str:
+    """The kernel entry a CUDA call with q's dtype and head dimension takes."""
+    if q.dtype == torch.float32:
+        return "f32"
+    if q.shape[-1] == HOPPER_C:
+        return "hopper"
+    return "wmma"
+
+
+def flash_attention_nhc_cuda(q, k, v, n_true: Optional[int] = None, entry: Optional[str] = None):
+    """Launches the kernel entry ``route(q)`` picks; ``entry`` names another
+    one that takes these inputs (the earlier ``wmma`` kernel at C = 512, to time
+    the two side by side)."""
     global launches
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention_nhc_cuda needs CUDA tensors")
@@ -91,17 +121,23 @@ def flash_attention_nhc_cuda(q, k, v, n_true: Optional[int] = None):
     if c > 512 or (q.dtype == torch.bfloat16 and c % 16 != 0):
         raise ValueError(f"head dimension {c} not supported by the kernel "
                          "(at most 512; a multiple of 16 for bfloat16)")
+    entry = route(q) if entry is None else entry
+    if entry not in launches_by_entry or (entry == "f32") != (q.dtype == torch.float32) \
+            or (entry == "hopper" and c != HOPPER_C):
+        raise ValueError(f"entry {entry!r} does not take {q.dtype} inputs with C = {c}")
     qs = _scale_q(q).contiguous()
     k = k.contiguous()
     v = v.contiguous()
+    if entry == "hopper":  # TMA needs 16-byte aligned bases
+        k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (k, v))
     out = torch.empty_like(qs)
-    lib = _kernel()
-    fn = lib.attn_fused_bf16 if q.dtype == torch.bfloat16 else lib.attn_fused_f32
+    fn = _kernels()[entry]
     with torch.cuda.device(q.device):
         err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, n_true, c,
                  torch.cuda.current_stream().cuda_stream)
     _build.check(err, fn.__name__)
     launches += 1
+    launches_by_entry[entry] += 1
     return out
 
 
@@ -112,7 +148,7 @@ def flash_attention_nhc(q, k, v, *, n_true: Optional[int] = None, pipeline: bool
     keys/values beyond it are masked, padded query rows compute garbage and
     stay in the output for the caller to slice. ``pipeline`` is accepted for
     parity with the JAX entry (there it picks a software-pipelined schedule
-    of the same function); the one CUDA kernel serves both.
+    of the same function); the same CUDA kernel serves both.
     """
     del pipeline
     if q.is_cuda:

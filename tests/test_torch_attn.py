@@ -8,6 +8,8 @@ after sums in a different order, so single last-bit flips: 2e-2 relative to the
 largest output (the bound tests/test_attn.py itself uses).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -94,12 +96,34 @@ def test_cuda_wrapper_refuses_cpu_and_bad_shapes():
     assert tattn.launches == 0
 
 
+def test_route_choice_by_dtype_and_width():
+    """The entry a CUDA call takes is fixed by dtype and head dimension before any
+    launch: bf16 C = 512 -> hopper, other bf16 widths -> wmma, float32 -> f32.
+    A CPU tensor takes the plain version and moves no count."""
+    def mk(c, dt):
+        return torch.zeros((1, 4, c), dtype=dt)
+
+    assert tattn.route(mk(512, torch.bfloat16)) == "hopper"
+    assert tattn.route(mk(96, torch.bfloat16)) == "wmma"
+    assert tattn.route(mk(256, torch.bfloat16)) == "wmma"
+    assert tattn.route(mk(512, torch.float32)) == "f32"
+    q, k, v = [torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(6, 1, 40, 512)]
+    before = (tattn.launches, dict(tattn.launches_by_entry))
+    got = tattn.flash_attention_nhc(q, k, v, n_true=37)
+    assert (tattn.launches, tattn.launches_by_entry) == before
+    assert torch.equal(got, tattn.flash_attention_nhc_ref(q, k, v, n_true=37))
+    src = open(os.path.join(os.path.dirname(tattn.__file__), "..", "csrc", "attn_hopper.cu")).read()
+    assert 'extern "C" int attn_hopper_bf16(' in src
+
+
 @pytest.mark.gpu
-def test_kernel_matches_ref_on_gpu():
+@pytest.mark.parametrize("b,n,c,n_true,entry", [(2, 333, 128, 301, "wmma"), (1, 2100, 512, 2047, "hopper")])
+def test_kernel_matches_ref_on_gpu(b, n, c, n_true, entry):
     need_gpu()
-    q, k, v = [torch.from_numpy(a).cuda().to(torch.bfloat16) for a in _qkv(5, 2, 333, 128)]
-    before = tattn.launches
-    got = tattn.flash_attention_nhc(q, k, v, n_true=301)
-    assert tattn.launches == before + 1
-    want = tattn.flash_attention_nhc_ref(q, k, v, n_true=301)
-    assert rel_err(got[:, :301].float().cpu(), want[:, :301].float().cpu()) < 2 ** -7
+    q, k, v = [torch.from_numpy(a).cuda().to(torch.bfloat16) for a in _qkv(5, b, n, c)]
+    before = (tattn.launches, dict(tattn.launches_by_entry))
+    got = tattn.flash_attention_nhc(q, k, v, n_true=n_true)
+    assert tattn.launches == before[0] + 1
+    assert tattn.launches_by_entry == {e: m + (e == entry) for e, m in before[1].items()}
+    want = tattn.flash_attention_nhc_ref(q, k, v, n_true=n_true)
+    assert rel_err(got[:, :n_true].float().cpu(), want[:, :n_true].float().cpu()) < 2 ** -7
