@@ -5,16 +5,22 @@
 
 Phases, each printing one JSON line:
   device     the card (nvidia-smi name + power limit), torch / CUDA versions
-  build      compiles the four csrc/*.cu with nvcc (one process per source, all
+  build      compiles the five csrc/*.cu with nvcc (one process per source, all
              started together) and loads them; ptxas registers, spills and shared
-             memory of the Hopper attention kernel (spills fail the run)
-  kernels    every hand-written kernel against its plain PyTorch version on the
-             card, at the shapes the main path gives it and at small ragged
+             memory of the two Hopper sources (attn_hopper.cu, dcn_hopper.cu): a
+             spill, or warning C7515 (a serialized wgmma pipeline), fails the run
+  kernels    every hand-written kernel entry against its plain PyTorch version on
+             the card, at the shapes the main path gives it and at small ragged
              shapes; times by CUDA events (median after a warm-up). Attention:
              the entry the wrapper picks for each case (hopper for bf16 C = 512,
-             wmma for other bf16 widths, f32), the earlier wmma entry timed beside
-             the hopper one at the main shape, and SDPA under each backend as
-             the yardstick
+             wmma for other bf16 widths, f32), the wmma and f32 entries also
+             timed at the main shape, and SDPA under each backend as the
+             yardstick. DCN: the entry ops.dcn.route picks (hopper for the
+             paths' bf16 widths, the first kernel's wmma / f32 otherwise), the
+             Hopper entry's edges (ragged tiles, B = 2, borders, corners outside
+             the halo, mask 0 / 1), the first kernel timed at the paths' shapes;
+             the cascade with its selection kernel, which must agree with the
+             plain selection exactly
   main_path  stage-3 paired inference at the full width of confs/LOL.yml
              (bf16, 620x420, dcn_impl pallas / clamp 2, seeded random weights):
              two single-image requests and one batch of two through
@@ -28,9 +34,10 @@ Phases, each printing one JSON line:
   stage2_path  stage-2 inference at the full width of confs/train_stage2_LOL.yml
              (bf16, 600x400): LLFlowModel.get_sr -> decode_latent, the same
              stage-wise comparison
-Every path is driven with the launch counts (attention: one per entry) set to 0
-just before and read just after; every attention launch of a path must land on
-the hopper entry.
+Every path is driven with the launch counts (attention and DCN: one per entry,
+see counters()) set to 0 just before and read just after; every attention launch
+of a path must land on the hopper entry, every DCN launch on the Hopper DCN
+entries (dcn_hopper, dcn_hopper_cascade with dcn_cascade_select).
 Then the contract lines: {"kernels": [...]}, the card line, and last
 {"ok": true, "device": {...}}. Any failure raises: non-zero exit, no last line.
 
@@ -143,19 +150,25 @@ def phase_build():
     regs = {}
     for name, log in _build.build_log.items():
         regs[name] = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln][:16]
-    hopper = {"smem_bytes": attn_ops.hopper_smem_bytes()}
-    log = _build.build_log.get("attn_hopper")
-    if log is not None:  # built by this process: read ptxas -v for the Hopper kernel
-        m_regs = re.search(r"Used (\d+) registers", log)
-        m_spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
-        require(m_regs is not None and m_spill is not None, "no ptxas report for attn_hopper")
-        hopper.update(registers=int(m_regs.group(1)), spill_store_bytes=int(m_spill.group(1)),
-                      spill_load_bytes=int(m_spill.group(2)))
-        require(hopper["spill_store_bytes"] == 0 and hopper["spill_load_bytes"] == 0,
-                f"attn_hopper spills registers: {hopper}")
+    reports = {"attn_hopper": {"smem_bytes": attn_ops.hopper_smem_bytes()},
+               "dcn_hopper": {"smem_bytes": {O: dcn_ops.hopper_smem_bytes(O) for O in (128, 256)}}}
+    for name, rep in reports.items():
+        log = _build.build_log.get(name)
+        if log is None:  # not built by this process (an up-to-date library was loaded)
+            continue
+        # ptxas -v of every kernel in the source: registers, spills; a spill, or
+        # warning C7515 (ptxas serialized the wgmma pipeline), fails the run
+        regs_ = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        spills = [(int(a), int(b)) for a, b in
+                  re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+        require(regs_ and spills, f"no ptxas report for {name}")
+        rep.update(registers=regs_, spill_bytes=[a + b for a, b in spills],
+                   c7515=[ln.strip() for ln in log.splitlines() if "C7515" in ln])
+        require(all(a == 0 and b == 0 for a, b in spills), f"{name} spills registers: {rep}")
+        require(not rep["c7515"], f"{name}: ptxas serialized wgmma (C7515): {rep['c7515']}")
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
           "nvcc_seconds": round(_build.build_seconds, 2),
-          "libraries": sorted(paths), "ptxas": regs, "attn_hopper": hopper})
+          "libraries": sorted(paths), "ptxas": regs, **reports})
 
 
 def vq_gap(z, e, got, want):
@@ -289,7 +302,7 @@ def check_attn():
     s = (qs @ k[:, :N_TOK].double().transpose(1, 2)) * 512 ** -0.5
     dense = torch.softmax(s, dim=-1) @ v[:, :N_TOK].double()
     err64 = float((got[:, 5000:5064].double() - dense).abs().max())
-    cases["bf16 vs float64 dense, 64 queries"] = {"max_abs_err": err64, "tol": 4 * tol}
+    cases["bf16 vs float64 dense, 64 queries"] = {"entry": "hopper", "max_abs_err": err64, "tol": 4 * tol}
     require(err64 <= 4 * tol, f"attn bf16 vs dense oracle: {err64}")
     # the earlier wmma kernel (csrc/attn_fused.cu) at the same shape, for its time
     compare("bf16[1,16384,512] n_true=16275, wmma entry", q, k, v, N_TOK, "wmma")
@@ -319,84 +332,232 @@ def check_attn():
     lib = min(accepted.values()) if accepted else None
     flops = 4.0 * N_TOK * N_TOK * 512
     b_ms, b_by = bound(flops, PEAK_BF16, 2.0 * 4 * N_TOK * 512)
-    return {"name": "attn_hopper", "route": "cuda", "source": "glare_tpu_torch/csrc/attn_hopper.cu",
-            "replaces": "glare_tpu/ops/attn_pallas.py:44", "max_abs_err": err,
-            "tol": f"2^-7 * max|ref| = {tol:.4g} (bf16 last-bit flips, summation order)",
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-            "library_call": "F.scaled_dot_product_attention, fastest backend that takes head dim 512",
-            "achieved_tflops": flops / ms / 1e9, "smem_bytes": attn_ops.hopper_smem_bytes(),
-            "earlier": {"name": "attn_fused (wmma entry)", "source": "glare_tpu_torch/csrc/attn_fused.cu",
-                        "ms": wmma_ms, "achieved_tflops": flops / wmma_ms / 1e9},
-            "sdpa_by_backend": sdpa, "cases": cases}
+    del q, k, v, got, w
+    torch.cuda.empty_cache()
+    # the float32 entry at the main shape, for its error and time
+    q, k, v = [dev(rng.standard_normal((1, N_PAD, 512)).astype(np.float32)) for _ in range(3)]
+    _, w32, _ = compare("float32[1,16384,512] n_true=16275", q, k, v, N_TOK, None, 5e-5)
+    f32_ms = time_ms(lambda: attn_ops.flash_attention_nhc_cuda(q, k, v, n_true=N_TOK), reps=3, warmup=1)
+    f32_plain = time_ms(lambda: attn_ops.flash_attention_nhc_ref(q, k, v, n_true=N_TOK), reps=3, warmup=1)
+    sdpa32 = _sdpa_by_backend(q, k, v, N_TOK, w32)
+    acc32 = {name: r["ms"] for name, r in sdpa32.items() if "ms" in r}
+    f32_b_ms, f32_b_by = bound(flops, PEAK_F32, 4.0 * 4 * N_TOK * 512)
+    del q, k, v, w32
+    torch.cuda.empty_cache()
+    main = "bf16[1,16384,512] n_true=16275"
+    common = {"route": "cuda", "replaces": "glare_tpu/ops/attn_pallas.py:44",
+              "tol": f"bf16: 2^-7 * max|ref| = {tol:.4g} (last-bit flips, summation order); f32: 5e-5"}
+    hopper = {"name": "attn_hopper", "source": "glare_tpu_torch/csrc/attn_hopper.cu", **common,
+              "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+              "library_ms": lib,
+              "library_call": "F.scaled_dot_product_attention, fastest backend that takes head dim 512",
+              "achieved_tflops": flops / ms / 1e9, "smem_bytes": attn_ops.hopper_smem_bytes(),
+              "sdpa_by_backend": sdpa, "cases": {t: c for t, c in cases.items() if c.get("entry") == "hopper"}}
+    wmma = {"name": "attn_wmma", "source": "glare_tpu_torch/csrc/attn_fused.cu", **common,
+            "max_abs_err": cases[main + ", wmma entry"]["max_abs_err"], "ms": wmma_ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "achieved_tflops": flops / wmma_ms / 1e9,
+            "note": "the first kernel's bf16 entry, timed at the main shape through entry='wmma'; "
+                    "the paths launch it for no call",
+            "cases": {t: c for t, c in cases.items() if c.get("entry") == "wmma"}}
+    f32 = {"name": "attn_f32", "source": "glare_tpu_torch/csrc/attn_fused.cu", **common,
+           "max_abs_err": cases["float32[1,16384,512] n_true=16275"]["max_abs_err"], "ms": f32_ms,
+           "plain_ms": f32_plain, "bound_ms": f32_b_ms, "bound_by": f32_b_by,
+           "library_ms": min(acc32.values()) if acc32 else None, "sdpa_by_backend": sdpa32,
+           "note": "float32 inputs at the main shape; bound by the float32 units (no tensor cores); "
+                   "the paths launch it for no call",
+           "cases": {t: c for t, c in cases.items() if c.get("entry") == "f32"}}
+    return hopper, wmma, f32
 
 
-def _dcn_inputs(rng, B, H, W, C, G, O, dtype, spread):
+def _dcn_inputs(rng, B, H, W, C, G, O, dtype, spread, edges=False):
+    """Seeded DCN inputs. ``edges``: offsets that point out of the image at every
+    border (5-7 px outward on the two outer rows and columns), and the mask
+    exactly 0 on every fourth row and exactly 1 on the row after it."""
     x = dev(rng.standard_normal((B, H, W, C)).astype(np.float32), dtype)
-    off = dev((spread * rng.standard_normal((B, H, W, G, 9, 2))).astype(np.float32))
-    mask = dev(rng.uniform(0, 1, (B, H, W, G, 9)).astype(np.float32))
+    off = (spread * rng.standard_normal((B, H, W, G, 9, 2))).astype(np.float32)
+    mask = rng.uniform(0, 1, (B, H, W, G, 9)).astype(np.float32)
+    if edges:
+        out = lambda *shape: (5.0 + 2.0 * rng.uniform(0, 1, shape)).astype(np.float32)  # noqa: E731
+        off[:, :2, ..., 0] = -out(B, 2, W, G, 9)
+        off[:, -2:, ..., 0] = out(B, 2, W, G, 9)
+        off[:, :, :2, ..., 1] = -out(B, H, 2, G, 9)
+        off[:, :, -2:, ..., 1] = out(B, H, 2, G, 9)
+        mask[:, 0::4] = 0.0
+        mask[:, 1::4] = 1.0
     wgt = dev((rng.standard_normal((3, 3, C, O)) / math.sqrt(9 * C)).astype(np.float32))
     bias = dev((0.1 * rng.standard_normal(O)).astype(np.float32))
-    return x, off, mask, wgt, bias
+    return x, dev(off), dev(mask), wgt, bias
+
+
+def _dcn_bound(B, H, W, C, G, O, es):
+    """Least time of one pass: x, offset, mask, weight (in x's type) and bias read
+    once, the output written once; 2*P*9*C*O FLOP on the tensor cores (bf16) or
+    the float32 units."""
+    P = B * H * W
+    nbytes = P * C * es + P * G * 9 * 3 * 4 + 9 * C * O * es + O * 4 + P * O * es
+    return bound(2.0 * P * 9 * C * O, PEAK_BF16 if es == 2 else PEAK_F32, nbytes)
+
+
+def _dcn_tol(dt, want):
+    """bf16: kernel and plain version round the sampled column and the output to
+    bf16 at the same points; a last-bit flip of either costs up to two bf16 ulps
+    (2^-7) of the output. f32: only the order of ~9*C float32 sums differs."""
+    return 2.0 ** -7 * max(float(want.float().abs().max()), 1.0) if dt == torch.bfloat16 else 2e-4
+
+
+def _library_dcn(x, off, mask, wgt, bias, max_offset):
+    """torchvision.ops.deform_conv2d (exact modulated DCNv2, NCHW), where
+    torchvision is installed: the kernels' function once the offsets are
+    clamped beforehand. Its layouts (offset [B, G*9*2, H, W] as (g, k, (dy, dx)),
+    mask [B, G*9, H, W], weight OIHW) are made outside the timed call; it runs in
+    x's dtype, or in float32 where it refuses that. -> dict or None."""
+    try:
+        from torchvision.ops import deform_conv2d
+    except ImportError:
+        return None
+    B, H, W, _ = x.shape
+    G, O = off.shape[3], wgt.shape[-1]
+    r = dcn_ops.clamp_table(max_offset, G).to(x.device)[None, None, None, :, :, None]
+    o = torch.minimum(torch.maximum(off, -r), r).reshape(B, H, W, G * 18).permute(0, 3, 1, 2).contiguous()
+    m = mask.reshape(B, H, W, G * 9).permute(0, 3, 1, 2).contiguous()
+    for dt in dict.fromkeys((x.dtype, torch.float32)):
+        a = (x.permute(0, 3, 1, 2).contiguous().to(dt), o.to(dt), wgt.permute(3, 2, 0, 1).contiguous().to(dt),
+             bias.to(dt), m.to(dt))
+        call = lambda a=a: deform_conv2d(a[0], a[1], a[2], a[3], padding=1, mask=a[4])  # noqa: E731
+        try:
+            out = call()
+        except RuntimeError as e:
+            refused = str(e).splitlines()[0]
+            continue
+        got = out.permute(0, 2, 3, 1).float()
+        return {"dtype": str(dt).split(".")[-1], "ms": time_ms(call),
+                "got": got, "refused": None if dt == x.dtype else refused}
+    return {"dtype": None, "ms": None, "got": None, "refused": refused}
+
+
+DCN_ENTRY_KEY = {"hopper": "dcn_hopper", "wmma": "dcn_fwd", "f32": "dcn_fwd"}
+CASCADE_ENTRY_KEY = {"hopper": "dcn_hopper_cascade", "wmma": "dcn_cascade_fwd", "f32": "dcn_cascade_fwd"}
 
 
 def check_dcn():
+    """Every DCN entry against modulated_deform_conv_ref, through the entry
+    ops.dcn.route picks: the paths' shapes in bf16 go to the Hopper entry
+    (csrc/dcn_hopper.cu), float32 and other widths to the first kernel
+    (csrc/dcn_fwd.cu). The Hopper entry's edges: H and W that are not
+    multiples of the 8 x 16 tile, B = 2, offsets out of the image at every
+    border, corners outside the halo (exact +-6 px, per-tap radii up to 4),
+    mask 0 and 1, Cg 128 / 64 / 32. The `pallas` counter (taps beyond the
+    clamp) equals the plain version's exactly. -> (Hopper row, first-kernel row)."""
     rng = np.random.default_rng(2)
     per_tap = tuple(tuple(int(r) for r in row) for row in rng.integers(1, 5, (4, 9)))
-    cases = {}
-    timed = {}
-    # (tag, B, H, W, C, G, O, dtype, offset spread px, max_offset, timed?)
+    cases, timed = {}, {}
+    H0, W0, H1, W1 = H_IN // 2, W_IN // 2, H_IN, W_IN
+    # (tag, B, H, W, C, G, O, dtype, offset spread px, max_offset, edges, timed as)
     plan = [
-        ("warp_0 bf16 clamp2", 1, H_IN // 2, W_IN // 2, 256, 4, 256, torch.bfloat16, 1.5, 2, True),
-        ("warp_1 bf16 clamp2", 1, H_IN, W_IN, 128, 4, 128, torch.bfloat16, 1.5, 2, True),
-        ("warp_0 bf16 exact +-6px", 1, H_IN // 2, W_IN // 2, 256, 4, 256, torch.bfloat16, 3.0, None, False),
-        ("warp_1 bf16 per-tap", 1, H_IN, W_IN, 128, 4, 128, torch.bfloat16, 3.0, per_tap, False),
-        ("warp_0 f32 exact +-6px", 1, H_IN // 2, W_IN // 2, 256, 4, 256, torch.float32, 3.0, None, False),
-        ("warp_1 f32 clamp2", 1, H_IN, W_IN, 128, 4, 128, torch.float32, 3.0, 2, False),
-        ("ragged f32 exact", 2, 13, 17, 24, 4, 20, torch.float32, 3.0, None, False),
-        ("ragged f32 per-tap", 2, 13, 17, 24, 4, 20, torch.float32, 3.0, per_tap, False),
-        ("small bf16 clamp2", 2, 13, 17, 32, 4, 48, torch.bfloat16, 3.0, 2, False),
-        ("small bf16 Cg=4 exact", 1, 9, 70, 16, 4, 16, torch.bfloat16, 3.0, None, False),
+        ("warp_0 bf16 clamp2", 1, H0, W0, 256, 4, 256, torch.bfloat16, 1.5, 2, False, "warp_0"),
+        ("warp_1 bf16 clamp2", 1, H1, W1, 128, 4, 128, torch.bfloat16, 1.5, 2, False, "warp_1"),
+        ("warp_0 bf16 clamp2 B=2", 2, H0, W0, 256, 4, 256, torch.bfloat16, 1.5, 2, False, "warp_0 B=2"),
+        ("warp_1 bf16 clamp2 B=2", 2, H1, W1, 128, 4, 128, torch.bfloat16, 1.5, 2, False, "warp_1 B=2"),
+        ("warp_0 bf16 exact +-6px", 1, H0, W0, 256, 4, 256, torch.bfloat16, 3.0, None, False, None),
+        ("warp_1 bf16 per-tap", 1, H1, W1, 128, 4, 128, torch.bfloat16, 3.0, per_tap, False, None),
+        ("warp_0 f32 exact +-6px", 1, H0, W0, 256, 4, 256, torch.float32, 3.0, None, False, None),
+        ("warp_1 f32 clamp2", 1, H1, W1, 128, 4, 128, torch.float32, 3.0, 2, False, None),
+        ("ragged f32 exact", 2, 13, 17, 24, 4, 20, torch.float32, 3.0, None, False, None),
+        ("ragged f32 per-tap", 2, 13, 17, 24, 4, 20, torch.float32, 3.0, per_tap, False, None),
+        ("small bf16 clamp2", 2, 13, 17, 32, 4, 48, torch.bfloat16, 3.0, 2, False, None),
+        ("small bf16 Cg=4 exact", 1, 9, 70, 16, 4, 16, torch.bfloat16, 3.0, None, False, None),
+        ("edge 13x17 C=O=256 clamp2", 1, 13, 17, 256, 4, 256, torch.bfloat16, 1.5, 2, True, None),
+        ("edge 13x17 C=O=256 B=2 exact +-6px", 2, 13, 17, 256, 4, 256, torch.bfloat16, 3.0, None, True, None),
+        ("edge 9x70 C=O=128 B=2 per-tap", 2, 9, 70, 128, 4, 128, torch.bfloat16, 3.0, per_tap, True, None),
+        ("edge 9x70 C=O=128 clamp2", 1, 9, 70, 128, 4, 128, torch.bfloat16, 1.5, 2, True, None),
+        ("edge 21x33 C=64 G=2 (Cg 32) O=128 exact", 1, 21, 33, 64, 2, 128, torch.bfloat16, 3.0, None, True, None),
+        ("edge 13x17 C=256 G=8 (Cg 32) O=128 clamp2", 2, 13, 17, 256, 8, 128, torch.bfloat16, 1.5, 2, True, None),
+        ("edge 13x17 C=256 G=2 (Cg 128) O=256 clamp2", 1, 13, 17, 256, 2, 256, torch.bfloat16, 1.5, 2, True, None),
     ]
-    worst_main = 0.0
-    for (tag, B, H, W, C, G, O, dt, spread, mo, timed_case) in plan:
-        x, off, mask, wgt, bias = _dcn_inputs(rng, B, H, W, C, G, O, dt, spread)
-        got = dcn_ops.modulated_deform_conv_cuda(x, off, mask, wgt, bias, max_offset=mo)
+    for (tag, B, H, W, C, G, O, dt, spread, mo, edges, timed_as) in plan:
+        x, off, mask, wgt, bias = _dcn_inputs(rng, B, H, W, C, G, O, dt, spread, edges)
+        entry = dcn_ops.route(x, off, wgt)
+        require(entry == ("f32" if dt == torch.float32 else
+                          "hopper" if C % 64 == 0 and (C // G) % 32 == 0 and O in (128, 256) else "wmma"),
+                f"dcn {tag}: routed to {entry}")
+        before = counters()
+        got, ov = dcn_ops.modulated_deform_conv_cuda(x, off, mask, wgt, bias, max_offset=mo,
+                                                     return_overflow=True)
         torch.cuda.synchronize()
-        want = dcn_ops.modulated_deform_conv_ref(x, off, mask, wgt, bias, max_offset=mo)
+        require(moved_since(before) == {**{k: 0 for k in before}, DCN_ENTRY_KEY[entry]: 1},
+                f"dcn {tag}: counters {moved_since(before)}")
+        want, wov = dcn_ops.modulated_deform_conv_ref(x, off, mask, wgt, bias, max_offset=mo,
+                                                      return_overflow=True)
         require(got.shape == want.shape and got.dtype == dt, f"dcn {tag}: bad output")
         require(bool(torch.isfinite(got.float()).all()), f"dcn {tag}: non-finite output")
+        require(ov.tolist() == wov.tolist(), f"dcn {tag}: counter {ov.tolist()} != plain {wov.tolist()}")
         err = float((got.float() - want.float()).abs().max())
-        ref_max = float(want.float().abs().max())
-        # bf16: both round the sampled column and the output to bf16 at the same
-        # points; a last-bit flip of either costs up to two bf16 ulps (2^-7) of the
-        # output. f32: only the order of ~9*C float32 sums differs: 2e-4.
-        tol = 2.0 ** -7 * max(ref_max, 1.0) if dt == torch.bfloat16 else 2e-4
+        tol = _dcn_tol(dt, want)
         frac_out = float(((off.abs() > 2).any(dim=-1)).float().mean())
-        cases[tag] = {"shape": [B, H, W, C, O], "max_abs_err": err, "tol": tol,
-                      "taps_beyond_2px": round(frac_out, 4)}
+        cases[tag] = {"entry": entry, "shape": [B, H, W, C, G, O], "max_abs_err": err, "tol": tol,
+                      "overflow": ov.tolist(), "taps_beyond_2px": round(frac_out, 4)}
         require(err <= tol, f"dcn {tag}: {err} > {tol}")
-        if timed_case:
-            worst_main = max(worst_main, err)
-            ms = time_ms(lambda: dcn_ops.modulated_deform_conv_cuda(x, off, mask, wgt, bias, max_offset=mo))
-            plain = time_ms(lambda: dcn_ops.modulated_deform_conv_ref(x, off, mask, wgt, bias, max_offset=mo),
-                            reps=3, warmup=1)
-            es = x.element_size()
-            P = B * H * W
-            nbytes = P * C * es + P * G * 9 * 3 * 4 + 9 * C * O * 4 + O * 4 + P * O * es
-            b_ms, b_by = bound(2.0 * P * 9 * C * O, PEAK_BF16, nbytes)
-            timed[tag] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                          "achieved_tflops": 2.0 * P * 9 * C * O / ms / 1e9}
+        if timed_as:
+            # the first kernel (entry wmma) on the same inputs, for its error and time;
+            # timed as the model calls them: bf16 weight, the clamp table on the card
+            radii = dcn_ops.clamp_table(mo, G).to(DEV)
+            w16 = wgt.to(torch.bfloat16)
+            old = dcn_ops.modulated_deform_conv_cuda(x, off, mask, w16, bias, max_offset=radii, entry="wmma")
+            e_old = float((old.float() - want.float()).abs().max())
+            require(e_old <= tol, f"dcn {tag}, wmma entry: {e_old} > {tol}")
+            ms = time_ms(lambda: dcn_ops.modulated_deform_conv_cuda(x, off, mask, w16, bias, max_offset=radii,
+                                                                    return_overflow=True), reps=10)
+            ms_old = time_ms(lambda: dcn_ops.modulated_deform_conv_cuda(x, off, mask, w16, bias, max_offset=radii,
+                                                                        entry="wmma"))
+            t = {"ms": ms, "wmma_ms": ms_old, "max_abs_err": err, "wmma_max_abs_err": e_old}
+            lib = _library_dcn(x, off, mask, wgt, bias, mo)
+            t["library_ms"] = None if lib is None else lib["ms"]
+            if lib is not None:   # a yardstick only: its distance from the plain version is reported
+                got_lib = lib.pop("got")
+                lib["max_abs_err"] = None if got_lib is None else float((got_lib - want.float()).abs().max())
+                t["library"] = lib
+            if B == 1:
+                t["plain_ms"] = time_ms(lambda: dcn_ops.modulated_deform_conv_ref(
+                    x, off, mask, wgt, bias, max_offset=mo), reps=3, warmup=1)
+            t["bound_ms"], t["bound_by"] = _dcn_bound(B, H, W, C, G, O, x.element_size())
+            flops = 2.0 * B * H * W * 9 * C * O
+            t.update(achieved_tflops=flops / ms / 1e9, wmma_achieved_tflops=flops / ms_old / 1e9,
+                     share_of_bound=t["bound_ms"] / ms)
+            timed[timed_as] = t
+            del old
         del x, off, mask, wgt, bias, got, want
         torch.cuda.empty_cache()
-    mean = lambda key: sum(t[key] for t in timed.values()) / len(timed)  # noqa: E731
-    by = max(timed.values(), key=lambda t: t["bound_ms"])["bound_by"]
-    return {"name": "dcn_fwd", "route": "cuda", "source": "glare_tpu_torch/csrc/dcn_fwd.cu",
-            "replaces": "glare_tpu/ops/dcn_pallas.py:55", "max_abs_err": worst_main,
-            "tol": "bf16: 2^-7 * max(1, max|ref|); f32: 2e-4",
-            "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
-            "bound_by": by, "library_ms": None,
-            "note": "ms / plain_ms / bound_ms: mean per launch over the two shapes one get_sr gives it",
-            "by_shape": timed, "cases": cases}
+    main = [timed["warp_0"], timed["warp_1"]]   # the two launches of one get_sr
+    mean = lambda key: sum(t[key] for t in main) / len(main)  # noqa: E731
+    by = max(main, key=lambda t: t["bound_ms"])["bound_by"]
+    lib_ms = None if any(t["library_ms"] is None for t in main) else mean("library_ms")
+    note = ("ms / plain_ms / bound_ms / library_ms: mean per launch over the two shapes one get_sr gives it; "
+            "library: torchvision.ops.deform_conv2d on pre-clamped offsets "
+            + ("(torchvision is installed)" if _has_torchvision() else "(torchvision is not installed: null)"))
+    lib_call = {} if lib_ms is None else {
+        "library_call": f"torchvision.ops.deform_conv2d in {main[0]['library']['dtype']}, offsets clamped first"}
+    hopper = {"name": "dcn_hopper", "route": "cuda", "source": "glare_tpu_torch/csrc/dcn_hopper.cu",
+              "replaces": "glare_tpu/ops/dcn_pallas.py:55",
+              "max_abs_err": max(t["max_abs_err"] for t in main),
+              "tol": "bf16: 2^-7 * max(1, max|ref|); the pallas counter exact",
+              "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"), "bound_by": by,
+              "library_ms": lib_ms, **lib_call, "note": note, "smem_bytes": {O: dcn_ops.hopper_smem_bytes(O) for O in (128, 256)},
+              "by_shape": timed, "cases": {k: c for k, c in cases.items() if c["entry"] == "hopper"}}
+    first = {"name": "dcn_fwd", "route": "cuda", "source": "glare_tpu_torch/csrc/dcn_fwd.cu",
+             "replaces": "glare_tpu/ops/dcn_pallas.py:55",
+             "max_abs_err": max(t["wmma_max_abs_err"] for t in main),
+             "tol": "bf16: 2^-7 * max(1, max|ref|); f32: 2e-4",
+             "ms": mean("wmma_ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"), "bound_by": by,
+             "library_ms": lib_ms, **lib_call,
+             "note": note + "; the first kernel (entries wmma and f32), timed at the paths' shapes through "
+                            "entry='wmma'; the paths launch it for no call",
+             "cases": {k: c for k, c in cases.items() if c["entry"] != "hopper"}}
+    return hopper, first
+
+
+def _has_torchvision():
+    import importlib.util
+    return importlib.util.find_spec("torchvision") is not None
 
 
 def _cascade_offsets(rng, field, B, H, W, G):
@@ -404,12 +565,17 @@ def _cascade_offsets(rng, field, B, H, W, G):
     'bands'  in band (|d| <= 2) but for three bands of five rows, which reach
              7.5 px: at most six 8-row blocks, fewer than the 8 slots;
     'wide'   up to 7.5 px everywhere: every block is out of band, most overflow;
-    'beyond' as 'bands', and 12 px spread: taps beyond R_tail, everywhere."""
+    'beyond' as 'bands', and 12 px spread: taps beyond R_tail, everywhere;
+    'tail16' as 'bands', but the bands reach 15.5 px (for R_tail 16: corners far
+             outside the kernel's staged halo)."""
     base = np.clip(1.0 * rng.standard_normal((B, H, W, G, 9, 2)), -2, 2)
     wide = np.clip(3.0 * rng.standard_normal((B, H, W, G, 9, 2)), -7.5, 7.5)
-    if field == "bands":
+    if field in ("bands", "tail16"):
         off = base
+        if field == "tail16":
+            wide = np.clip(6.0 * rng.standard_normal((B, H, W, G, 9, 2)), -15.5, 15.5)
         for r0 in (H // 7, H // 2, H - 9):
+            r0 = max(0, r0)
             off[:, r0:r0 + 5] = wide[:, r0:r0 + 5]
     elif field == "wide":
         off = wide
@@ -418,14 +584,71 @@ def _cascade_offsets(rng, field, B, H, W, G):
     return dev(off.astype(np.float32))
 
 
+def _check_cascade_case(tag, a, kw, field, cases, entry=None):
+    """One cascade call through ``entry`` (None: the one route picks) against
+    the plain version: output within tolerance, selection kernel equal to its
+    plain version (row radii and both counters exact), and the field's own
+    check against the same entry's non-cascade kernel. -> (output, row radii)."""
+    x = a[0]
+    entry = dcn_ops.route(x, a[1], a[3]) if entry is None else entry
+    before = counters()
+    got, ov = dcn_ops.modulated_deform_conv_cascade_cuda(*a, return_overflow=True, entry=entry, **kw)
+    torch.cuda.synchronize()
+    require(moved_since(before) == {**{k: 0 for k in before}, CASCADE_ENTRY_KEY[entry]: 1,
+                                    "dcn_cascade_select": 1}, f"cascade {tag}: counters")
+    want, wov = dcn_ops.modulated_deform_conv_cascade_ref(*a, return_overflow=True, **kw)
+    require(got.shape == want.shape and got.dtype == x.dtype, f"cascade {tag}: bad output")
+    require(bool(torch.isfinite(got.float()).all()), f"cascade {tag}: non-finite")
+    require(ov.tolist() == wov.tolist(), f"cascade {tag}: counters {ov.tolist()} != "
+                                         f"plain version's {wov.tolist()}")
+    rr, sov = dcn_ops.cascade_select_cuda(a[1], **kw)
+    wrr, _ = dcn_ops.cascade_row_radius(a[1], **kw)
+    require(bool(torch.equal(rr, wrr)) and sov.tolist() == wov.tolist(),
+            f"cascade {tag}: the selection kernel differs from its plain version")
+    err = float((got.float() - want.float()).abs().max())
+    tol = _dcn_tol(x.dtype, want)
+    require(err <= tol, f"cascade {tag}: {err} > {tol}")
+    row_sel = rr > float(kw["max_offset"])
+    B, H = a[1].shape[:2]
+    case = {"entry": entry, "shape": list(x.shape), "max_abs_err": err, "tol": tol, "overflow": ov.tolist(),
+            "rows_at_tail_radius": int(row_sel.sum()), "rows": B * H, **kw}
+    if field in ("bands", "tail16"):
+        # both counters zero <=> exact DCNv2: also equal to the exact kernel
+        require(ov.tolist() == [0, 0], f"cascade {tag}: {ov.tolist()} != [0, 0]")
+        exact = dcn_ops.modulated_deform_conv_cuda(*a, max_offset=None, entry=entry)
+        e2 = float((got.float() - exact.float()).abs().max())
+        case["vs_exact_kernel"] = e2
+        require(e2 <= tol, f"cascade {tag} vs exact kernel: {e2} > {tol}")
+        require(case["rows_at_tail_radius"] > 0, f"cascade {tag}: nothing selected")
+        require(field == "tail16" or case["rows_at_tail_radius"] < B * H, f"cascade {tag}: selection")
+    elif field == "wide":
+        # blocks that found no slot keep the clamp-R kernel's output, bit for bit
+        require(ov[0].item() > 0 and ov[1].item() == 0, f"cascade {tag}: {ov.tolist()}")
+        clamped = dcn_ops.modulated_deform_conv_cuda(*a, max_offset=kw["max_offset"], entry=entry)
+        keep = ~row_sel
+        require(bool(torch.equal(got[keep], clamped[keep])),
+                f"cascade {tag}: overflowed blocks differ from the clamp-R kernel")
+        require(not bool(torch.equal(got[row_sel], clamped[row_sel])),
+                f"cascade {tag}: selected blocks were not recomputed")
+    else:
+        require(ov[1].item() > 0, f"cascade {tag}: no tap beyond R_tail counted")
+    cases[tag] = case
+    return got, rr
+
+
 def check_dcn_cascade():
-    """dcn_cascade_fwd vs modulated_deform_conv_cascade_ref on the card, at the
-    two shapes the hybrid path gives it, bf16 and float32, R=2, R_tail=8,
-    capacity 0.125. Outputs within check_dcn's tolerance, both counters exact."""
+    """The cascade wrapper (selection kernel dcn_cascade_select + one pass of the
+    routed entry) vs modulated_deform_conv_cascade_ref on the card, at the two
+    shapes the hybrid path gives it, bf16 and float32, R=2, R_tail=8, capacity
+    0.125; and on the Hopper entry's edges: R_tail 16 (corners far outside the
+    halo), B = 2, H and W off the tile, offsets out of the image at every
+    border, mask 0 and 1. The first kernel's bf16 cascade (entry wmma) is held
+    to the same checks on the same inputs at both shapes. Outputs within
+    check_dcn's tolerance, the selection kernel's row radii and both counters
+    exact. -> (Hopper cascade row, selection-kernel row, first-kernel cascade row)."""
     rng = np.random.default_rng(4)
     kw = dict(max_offset=2, tail_offset=8, capacity_frac=0.125)
     cases, timed = {}, {}
-    worst_main = 0.0
     shapes = [("warp_0", 1, H_IN // 2, W_IN // 2, 256, 4, 256), ("warp_1", 1, H_IN, W_IN, 128, 4, 128)]
     for (wname, B, H, W, C, G, O) in shapes:
         for dt in (torch.bfloat16, torch.float32):
@@ -434,80 +657,93 @@ def check_dcn_cascade():
                 tag = f"{wname} {str(dt).split('.')[-1]} {field}"
                 off = _cascade_offsets(rng, field, B, H, W, G)
                 a = (x, off, mask, wgt, bias)
-                before = counters()
-                got, ov = dcn_ops.modulated_deform_conv_cascade_cuda(*a, return_overflow=True, **kw)
-                torch.cuda.synchronize()
-                require(moved_since(before) == {**{k: 0 for k in before}, "dcn_cascade": 1},
-                        f"cascade {tag}: counters")
-                want, wov = dcn_ops.modulated_deform_conv_cascade_ref(*a, return_overflow=True, **kw)
-                require(got.shape == want.shape and got.dtype == dt, f"cascade {tag}: bad output")
-                require(bool(torch.isfinite(got.float()).all()), f"cascade {tag}: non-finite")
-                require(ov.tolist() == wov.tolist(), f"cascade {tag}: counters {ov.tolist()} != "
-                                                     f"plain version's {wov.tolist()}")
-                err = float((got.float() - want.float()).abs().max())
-                ref_max = float(want.float().abs().max())
-                tol = 2.0 ** -7 * max(ref_max, 1.0) if dt == torch.bfloat16 else 2e-4
-                require(err <= tol, f"cascade {tag}: {err} > {tol}")
-                row_sel, _ = dcn_ops.cascade_selection(off, **kw)
-                case = {"max_abs_err": err, "tol": tol, "overflow": ov.tolist(),
-                        "rows_at_tail_radius": int(row_sel.sum()), "rows": B * H}
-                if field == "bands":
-                    # both counters zero <=> exact DCNv2: also equal to the exact kernel
-                    require(ov.tolist() == [0, 0], f"cascade {tag}: {ov.tolist()} != [0, 0]")
-                    exact = dcn_ops.modulated_deform_conv_cuda(*a, max_offset=None)
-                    e2 = float((got.float() - exact.float()).abs().max())
-                    case["vs_exact_kernel"] = e2
-                    require(e2 <= tol, f"cascade {tag} vs exact kernel: {e2} > {tol}")
-                    require(0 < case["rows_at_tail_radius"] < B * H, f"cascade {tag}: selection")
-                elif field == "wide":
-                    # blocks that found no slot keep the clamp-R kernel's output, bit for bit
-                    require(ov[0].item() > 0 and ov[1].item() == 0, f"cascade {tag}: {ov.tolist()}")
-                    clamped = dcn_ops.modulated_deform_conv_cuda(*a, max_offset=2)
-                    keep = ~row_sel
-                    require(bool(torch.equal(got[keep], clamped[keep])),
-                            f"cascade {tag}: overflowed blocks differ from the clamp-R kernel")
-                    require(not bool(torch.equal(got[row_sel], clamped[row_sel])),
-                            f"cascade {tag}: selected blocks were not recomputed")
-                else:
-                    require(ov[1].item() > 0, f"cascade {tag}: no tap beyond R_tail counted")
-                cases[tag] = case
+                got, rr = _check_cascade_case(tag, a, kw, field, cases)
+                if dt == torch.bfloat16:   # the first kernel's bf16 cascade on the same inputs
+                    _check_cascade_case(f"{tag} [wmma]", a, kw, field, cases, entry="wmma")
                 if dt == torch.bfloat16 and field == "bands":
-                    worst_main = max(worst_main, err)
                     ms = time_ms(lambda: dcn_ops.modulated_deform_conv_cascade_cuda(
-                        *a, return_overflow=True, **kw))
-                    sel_ms = time_ms(lambda: dcn_ops.cascade_selection(off, **kw))
+                        *a, return_overflow=True, **kw), reps=10)
+                    sel_ms = time_ms(lambda: dcn_ops.cascade_select_cuda(off, **kw), reps=10)
+                    kern_ms = time_ms(lambda: dcn_ops._launch("hopper", True, *a, rr), reps=10)  # no selection
+                    torch_sel_ms = time_ms(lambda: dcn_ops.cascade_row_radius(off, **kw))
+                    ms_old = time_ms(lambda: dcn_ops.modulated_deform_conv_cascade_cuda(
+                        *a, return_overflow=True, entry="wmma", **kw))
                     plain = time_ms(lambda: dcn_ops.modulated_deform_conv_cascade_ref(
                         *a, return_overflow=True, **kw), reps=3, warmup=1)
-                    es = x.element_size()
-                    P = B * H * W
-                    nbytes = P * C * es + P * G * 9 * 3 * 4 + 9 * C * O * 4 + O * 4 + P * O * es
-                    b_ms, b_by = bound(2.0 * P * 9 * C * O, PEAK_BF16, nbytes)
-                    timed[wname] = {"ms": ms, "selection_ms": sel_ms, "plain_ms": plain,
-                                    "bound_ms": b_ms, "bound_by": b_by,
-                                    "achieved_tflops": 2.0 * P * 9 * C * O / ms / 1e9}
-                del off, got, want
+                    b_ms, b_by = _dcn_bound(B, H, W, C, G, O, x.element_size())
+                    sel_bytes = off.numel() * 4 + B * H * 4
+                    timed[wname] = {"ms": ms, "selection_kernel_ms": sel_ms, "pass_alone_ms": kern_ms,
+                                    "torch_selection_ms": torch_sel_ms, "wmma_wrapper_ms": ms_old,
+                                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                                    "selection_bound_ms": sel_bytes / PEAK_BYTES * 1e3,
+                                    "achieved_tflops": 2.0 * B * H * W * 9 * C * O / ms / 1e9,
+                                    "max_abs_err": cases[tag]["max_abs_err"],
+                                    "wmma_max_abs_err": cases[f"{tag} [wmma]"]["max_abs_err"]}
+                del off, got, rr
             del x, mask, wgt, bias
             torch.cuda.empty_cache()
-    mean = lambda key: sum(t[key] for t in timed.values()) / len(timed)  # noqa: E731
-    by = max(timed.values(), key=lambda t: t["bound_ms"])["bound_by"]
-    return {"name": "dcn_cascade", "route": "cuda", "source": "glare_tpu_torch/csrc/dcn_fwd.cu",
-            "replaces": "glare_tpu/ops/dcn_pallas.py:448", "max_abs_err": worst_main,
-            "tol": "bf16: 2^-7 * max(1, max|ref|); f32: 2e-4; both overflow counters exact",
-            "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
-            "bound_by": by, "library_ms": None,
-            "note": "ms: the whole wrapper (block selection in torch ops + one launch of "
-                    "dcn_cascade_fwd), mean per call over the two shapes one hybrid get_sr gives "
-                    "it; bound: one pass's work (input, offsets, mask, weight read once, output "
-                    "written once; 2*P*9*C*O FLOP)",
-            "by_shape": timed, "cases": cases}
+    # the Hopper entry's edges: (tag, B, H, W, C, G, O, field, kw)
+    edges = [
+        ("warp_1 bf16 R_tail16 tail16", 1, H_IN, W_IN, 128, 4, 128, "tail16",
+         dict(max_offset=2, tail_offset=16, capacity_frac=1.0)),
+        ("warp_0 bf16 B=2 bands", 2, H_IN // 2, W_IN // 2, 256, 4, 256, "bands",
+         dict(max_offset=2, tail_offset=8, capacity_frac=0.25)),   # 12 out-of-band blocks, 16 slots
+        ("13x17 C=O=256 B=2 R_tail16 tail16", 2, 13, 17, 256, 4, 256, "tail16",
+         dict(max_offset=2, tail_offset=16, capacity_frac=1.0)),
+        ("13x17 C=O=256 B=2 wide", 2, 13, 17, 256, 4, 256, "wide", kw),
+        ("9x70 C=O=128 B=2 R_tail16 tail16", 2, 9, 70, 128, 4, 128, "tail16",
+         dict(max_offset=2, tail_offset=16, capacity_frac=1.0)),
+        ("9x70 C=O=128 B=2 beyond", 2, 9, 70, 128, 4, 128, "beyond", kw),
+    ]
+    for (tag, B, H, W, C, G, O, field, ekw) in edges:
+        x, _, mask, wgt, bias = _dcn_inputs(rng, B, H, W, C, G, O, torch.bfloat16, 1.0, edges=True)
+        off = _cascade_offsets(rng, field, B, H, W, G)
+        if field == "tail16":   # and out of the image at every border, inside R_tail
+            off[:, :2, ..., 0] = -6.0
+            off[:, -2:, ..., 0] = 6.0
+            off[:, :, :2, ..., 1] = -6.0
+            off[:, :, -2:, ..., 1] = 6.0
+        _check_cascade_case(tag, (x, off, mask, wgt, bias), ekw, field, cases)
+        del x, off, mask, wgt, bias
+        torch.cuda.empty_cache()
+    main = [timed["warp_0"], timed["warp_1"]]
+    mean = lambda key: sum(t[key] for t in main) / len(main)  # noqa: E731
+    by = max(main, key=lambda t: t["bound_ms"])["bound_by"]
+    cascade = {"name": "dcn_hopper_cascade", "route": "cuda", "source": "glare_tpu_torch/csrc/dcn_hopper.cu",
+               "replaces": "glare_tpu/ops/dcn_pallas.py:448", "max_abs_err": max(t["max_abs_err"] for t in main),
+               "tol": "bf16: 2^-7 * max(1, max|ref|); f32: 2e-4; both overflow counters exact",
+               "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"), "bound_by": by,
+               "library_ms": None,
+               "note": "ms: the whole wrapper (selection kernel + one pass of the Hopper entry), mean per "
+                       "call over the two shapes one hybrid get_sr gives it; bound: one pass's work",
+               "by_shape": timed, "cases": {k: c for k, c in cases.items() if c["entry"] == "hopper"}}
+    select = {"name": "dcn_cascade_select", "route": "cuda", "source": "glare_tpu_torch/csrc/dcn_hopper.cu",
+              "replaces": "glare_tpu/ops/dcn_pallas.py:448 (the cascade's block selection)",
+              "max_abs_err": 0.0, "tol": "row radii and both counters equal to cascade_row_radius's",
+              "ms": mean("selection_kernel_ms"), "plain_ms": mean("torch_selection_ms"),
+              "bound_ms": mean("selection_bound_ms"), "bound_by": "bytes", "library_ms": None,
+              "note": "ms: the selection alone (zeroing of its scratch + one launch); plain: the torch-op "
+                      "selection it replaces; bound: offset read once, the row table written once"}
+    first = {"name": "dcn_cascade_fwd", "route": "cuda", "source": "glare_tpu_torch/csrc/dcn_fwd.cu",
+             "replaces": "glare_tpu/ops/dcn_pallas.py:448", "max_abs_err": max(t["wmma_max_abs_err"] for t in main),
+             "f32_max_abs_err": max(c["max_abs_err"] for c in cases.values() if c["entry"] == "f32"),
+             "tol": "bf16: 2^-7 * max(1, max|ref|); f32: 2e-4; both overflow counters exact",
+             "ms": mean("wmma_wrapper_ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+             "bound_by": by, "library_ms": None,
+             "note": "the first kernel's cascade entry (wmma for bf16, f32): ms is the wrapper with "
+                     "entry='wmma' at the paths' bf16 shapes, max_abs_err its error there (bands); its "
+                     "bf16 cases (bands, wide, beyond) and float32 cases are all checked; the paths "
+                     "launch it for no call",
+             "cases": {k: c for k, c in cases.items() if c["entry"] != "hopper"}}
+    return cascade, select, first
 
 
 def phase_kernels():
-    ks = [check_vq(), check_attn(), check_dcn(), check_dcn_cascade()]
+    ks = [check_vq(), *check_attn(), *check_dcn(), *check_dcn_cascade()]
     emit({"phase": "kernels", "kernels": [
         {"name": k["name"], "max_err": k["max_abs_err"], "tol": k["tol"], "kernel_ms": k["ms"],
-         "plain_ms": k["plain_ms"], "library_ms": k["library_ms"], "cases": k["cases"],
-         **({"by_shape": k["by_shape"]} if "by_shape" in k else {})} for k in ks]})
+         "plain_ms": k["plain_ms"], "library_ms": k["library_ms"],
+         **{key: k[key] for key in ("cases", "by_shape", "note") if key in k}} for k in ks]})
     return ks
 
 
@@ -547,17 +783,33 @@ def seeded_image(seed, batch=1, h=H_IN, w=W_IN):
 
 
 def counters():
+    """Launch counts by kernel row of the contract line: attention and DCN one
+    per entry (the first DCN kernel's wmma and f32 entries together)."""
     by_entry = attn_ops.launches_by_entry
+    dcn, cas = dcn_ops.launches_by_entry, dcn_ops.cascade_launches_by_entry
     require(attn_ops.launches == sum(by_entry.values()), "attention counts disagree")
+    require(dcn_ops.launches == sum(dcn.values()) and dcn_ops.cascade_launches == sum(cas.values()),
+            "DCN counts disagree")
     return {"vq_argmin": vq_ops.launches, "attn_hopper": by_entry["hopper"],
             "attn_wmma": by_entry["wmma"], "attn_f32": by_entry["f32"],
-            "dcn_fwd": dcn_ops.launches, "dcn_cascade": dcn_ops.cascade_launches}
+            "dcn_hopper": dcn["hopper"], "dcn_fwd": dcn["wmma"] + dcn["f32"],
+            "dcn_hopper_cascade": cas["hopper"], "dcn_cascade_fwd": cas["wmma"] + cas["f32"],
+            "dcn_cascade_select": dcn_ops.select_launches}
 
 
 def reset_counters():
     vq_ops.launches = attn_ops.launches = dcn_ops.launches = dcn_ops.cascade_launches = 0
-    for entry in attn_ops.launches_by_entry:
-        attn_ops.launches_by_entry[entry] = 0
+    dcn_ops.select_launches = 0
+    for table in (attn_ops.launches_by_entry, dcn_ops.launches_by_entry,
+                  dcn_ops.cascade_launches_by_entry):
+        for entry in table:
+            table[entry] = 0
+
+
+def dcn_on_hopper_only(moved, what):
+    """Every DCN launch in ``moved`` went through the Hopper entries."""
+    require(moved["dcn_fwd"] == 0 and moved["dcn_cascade_fwd"] == 0,
+            f"{what}: DCN launches off the Hopper entry: {moved}")
 
 
 def moved_since(before):
@@ -641,7 +893,8 @@ def phase_main_path():
     temper_offset_heads(model.netG, seed=7, std=0.02)
     build_s = time.time() - t0
     expected = {"vq_argmin": 1, "attn_hopper": 11, "attn_wmma": 0, "attn_f32": 0,
-                "dcn_fwd": 2, "dcn_cascade": 0}
+                "dcn_hopper": 2, "dcn_fwd": 0, "dcn_hopper_cascade": 0, "dcn_cascade_fwd": 0,
+                "dcn_cascade_select": 0}
 
     # warm-up request (cuDNN autotuning, allocator), not counted
     model.get_sr(dev(seeded_image(99)))
@@ -758,7 +1011,8 @@ def phase_hybrid_path():
 
     model = build("hybrid")          # conf defaults: R 2, R_tail 8, capacity 0.125
     per_call = {"vq_argmin": 1, "attn_hopper": 11, "attn_wmma": 0, "attn_f32": 0,
-                "dcn_fwd": 0, "dcn_cascade": 2}
+                "dcn_hopper": 0, "dcn_fwd": 0, "dcn_hopper_cascade": 2, "dcn_cascade_fwd": 0,
+                "dcn_cascade_select": 2}
     model.get_sr(dev(seeded_image(99)))   # warm-up, not counted
     torch.cuda.synchronize()
     reset_counters()
@@ -803,7 +1057,11 @@ def phase_hybrid_path():
     # the exact request against an exact ('xla') model with the same weights
     model_x, model_x32 = build("xla"), build("xla", "float32")
     lq = dev(seeded_image(22))
+    before = counters()
     sr_x = model_x.get_sr(lq)
+    moved = moved_since(before)
+    require(moved["dcn_hopper"] == 2, f"the exact model's get_sr: {moved}")
+    dcn_on_hopper_only(moved, "the exact model's get_sr")
     whole = {"max_abs_diff_vs_xla_kernel_path": float((sr - sr_x).abs().max()),
              "out_max": float(sr_x.abs().max())}
     with torch.inference_mode():
@@ -824,14 +1082,17 @@ def phase_hybrid_path():
     del model_x, model_x32
 
     # checkpoint-aware dispatch: audit a two-image batch, serve under what it chose
+    before = counters()
     stats = model.auto_configure_dcn(dev(seeded_image(23, 2)))
+    dcn_on_hopper_only(moved_since(before), "auto_configure_dcn's audit")
     # another image may still beat the audited radii: it goes through the loop too
     before = counters()
     with counted_get_sr(model) as n_calls:
         (sr, ov), ms = sync_ms(lambda: enhance_exact(model, dev(seeded_image(24)),
                                                      tag="request after the audit"))
     moved = moved_since(before)
-    require(moved["dcn_fwd"] + moved["dcn_cascade"] == 2 * n_calls[0]
+    dcn_on_hopper_only(moved, "the request after the audit")
+    require(moved["dcn_hopper"] + moved["dcn_hopper_cascade"] == 2 * n_calls[0]
             and moved["attn_hopper"] == 11 * n_calls[0] and moved["attn_wmma"] == moved["attn_f32"] == 0
             and bool(torch.isfinite(sr).all()),
             f"request under the audited configuration: {moved} over {n_calls[0]} get_sr calls")
@@ -876,7 +1137,8 @@ def phase_stage2_path():
     # attention: 3 blocks in ConEncoder1 + 4 in the VQGAN decoder, each above the
     # 8192-token threshold at 15000 tokens; one codebook retrieval
     per_call = {"vq_argmin": 1, "attn_hopper": 7, "attn_wmma": 0, "attn_f32": 0,
-                "dcn_fwd": 0, "dcn_cascade": 0}
+                "dcn_hopper": 0, "dcn_fwd": 0, "dcn_hopper_cascade": 0, "dcn_cascade_fwd": 0,
+                "dcn_cascade_select": 0}
     model.decode_latent(model.get_sr(dev(seeded_image(98, 1, H2, W2))))   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -941,7 +1203,8 @@ def _category(name):
     n = name.lower()
     for key, cat in (("attn_hopper_kernel", "attention (this repo)"),
                      ("attn_bf16_kernel", "attention (this repo)"), ("attn_f32_kernel", "attention (this repo)"),
-                     ("dcn_bf16_kernel", "dcn_fwd (this repo)"), ("dcn_f32_kernel", "dcn_fwd (this repo)"),
+                     ("dcn_hopper_kernel", "dcn (this repo)"), ("cascade_select_kernel", "dcn (this repo)"),
+                     ("dcn_bf16_kernel", "dcn (this repo)"), ("dcn_f32_kernel", "dcn (this repo)"),
                      ("vq_argmin", "vq_argmin (this repo)"),
                      ("groupnorm", "group norm"), ("group_norm", "group norm"), ("rowwisemoments", "group norm"),
                      ("cudnn", "conv / gemm (library)"), ("conv", "conv / gemm (library)"),
@@ -990,8 +1253,11 @@ def phase_profile(model):
           "top_kernels_ms": top})
 
 
-PATHS = {"vq_argmin": "main_path", "attn_hopper": "main_path", "dcn_fwd": "main_path",
-         "dcn_cascade": "hybrid_path"}   # the path whose count a kernel's "launches" reports
+# the path whose count a kernel's "launches" reports (and on which it must have
+# run); None: an entry that no path launches, reported with the main path's 0
+PATHS = {"vq_argmin": "main_path", "attn_hopper": "main_path", "attn_wmma": None, "attn_f32": None,
+         "dcn_hopper": "main_path", "dcn_fwd": None, "dcn_hopper_cascade": "hybrid_path",
+         "dcn_cascade_select": "hybrid_path", "dcn_cascade_fwd": None}
 ALL_PHASES = "device,build,kernels,main_path,hybrid_path,stage2_path"
 
 
@@ -1028,9 +1294,10 @@ def main():
             "bound_ms", "bound_by", "library_ms", "launches_by_path")
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]] for path, c in counts.items()}
-        k["launches"] = k["launches_by_path"][PATHS[k["name"]]]
-        require(k["launches"] > 0, f"kernel {k['name']} was never launched on {PATHS[k['name']]}")
-    extras = ("library_call", "smem_bytes", "earlier", "sdpa_by_backend")
+        path = PATHS[k["name"]]
+        k["launches"] = k["launches_by_path"][path or "main_path"]
+        require(path is None or k["launches"] > 0, f"kernel {k['name']} was never launched on {path}")
+    extras = ("library_call", "smem_bytes", "sdpa_by_backend")
     emit({"kernels": [{**{key: k[key] for key in keys}, **{key: k[key] for key in extras if key in k}}
                       for k in kernels]})
     emit({"seconds": round(time.time() - t_start, 1)})

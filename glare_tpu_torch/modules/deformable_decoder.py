@@ -49,8 +49,9 @@ class DCNv2Pack(nn.Module):
 
     After a forward with a bounded impl, ``dcn_overflow`` holds an int64 ``[2]``
     tensor on the device (the JAX module's ``dcn_overflow`` sow): for
-    ``'pallas'`` ``[0, taps beyond the clamp]``, for ``'hybrid'`` ``[out-of-band
-    blocks that did not fit the capacity, taps beyond the tail radius]``.
+    ``'pallas'`` ``[0, taps beyond the clamp]`` (counted by the kernel on the
+    card), for ``'hybrid'`` ``[out-of-band blocks that did not fit the capacity,
+    taps beyond the tail radius]`` (the cascade's selection kernel).
     Non-zero means this batch's output deviates from exact DCNv2. With
     ``audit_offsets`` the raw ``[B, H, W, G, K, 2]`` offsets of the last forward
     are kept in ``last_offsets`` (the JAX module's ``offsets`` sow).
@@ -75,12 +76,17 @@ class DCNv2Pack(nn.Module):
         self.last_shapes = None
 
     def configure(self, impl, max_offset, hybrid_capacity=0.125, hybrid_tail_offset=8):
-        """Set the dispatch knobs (no weight changes)."""
+        """Set the dispatch knobs (no weight changes). The clamp table of
+        ``'pallas'`` / ``'xla'`` (all inf) is built here, once, on the module's
+        device; ``forward`` moves it along if the module has moved since."""
         if impl not in self.IMPLS:
             raise NotImplementedError(_LATER.format(impl))
         self.impl, self.max_offset = impl, max_offset
         self.hybrid_capacity = float(hybrid_capacity)
         self.hybrid_tail_offset = int(hybrid_tail_offset)
+        weight = self._parameters.get("weight")
+        self.clamp_radii = dcn_ops.clamp_table(max_offset if impl == "pallas" else None, self.G,
+                                               self.K).to("cpu" if weight is None else weight.device)
 
     def seeded_reset(self, generator):
         bound = 1.0 / math.sqrt(self.weight.shape[1] * self.K)
@@ -114,16 +120,15 @@ class DCNv2Pack(nn.Module):
                 tail_offset=max(self.hybrid_tail_offset, int(mo) + 1),
                 capacity_frac=self.hybrid_capacity, return_overflow=True)
             return out.permute(0, 3, 1, 2)
-        if self.impl == "pallas":
-            max_offset = self.max_offset
-            thresh = dcn_ops.clamp_table(max_offset, self.G, self.K).to(offset.device)
-            beyond = (offset.abs().amax(dim=-1) > thresh).sum()
-            self.dcn_overflow = torch.stack([torch.zeros_like(beyond), beyond])
-        else:
-            max_offset = None
-            self.dcn_overflow = None
+        if self.clamp_radii.device != x.device:
+            self.clamp_radii = self.clamp_radii.to(x.device)
         out = dcn_ops.modulated_deform_conv(x_nhwc, offset, mask, weight, self.bias,
-                                            max_offset=max_offset)
+                                            max_offset=self.clamp_radii,
+                                            return_overflow=self.impl == "pallas")
+        if self.impl == "pallas":
+            out, self.dcn_overflow = out
+        else:
+            self.dcn_overflow = None
         return out.permute(0, 3, 1, 2)
 
 

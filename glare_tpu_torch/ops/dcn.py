@@ -17,11 +17,17 @@ zero. The contraction uses the weight flattened as ``[K, G, Cg, O] -> [9*C, O]``
 (row ``k*C + g*Cg + cg``) in both the kernel and the plain version.
 
   * :func:`modulated_deform_conv_ref` -- plain PyTorch by gathers.
-  * :func:`modulated_deform_conv_cuda` -- the hand-written kernel
-    ``csrc/dcn_fwd.cu`` (replaces the Pallas ``_kernel_core``): gather +
-    modulation + the ``[9*C -> O]`` contraction in one kernel.
+  * :func:`modulated_deform_conv_cuda` -- the hand-written kernels that replace
+    the Pallas ``_kernel_core``, one of three entries chosen by :func:`route`
+    from dtype and widths before the launch: ``hopper`` (``csrc/dcn_hopper.cu``:
+    2-D tiles, a TMA-staged halo, ``wgmma``, warp-specialised; bf16 inside
+    :func:`hopper_envelope`, every launch of the model's paths), ``wmma``
+    (``csrc/dcn_fwd.cu``, the first kernel: other bf16 widths) and ``f32``
+    (``csrc/dcn_fwd.cu``). Each is gather + modulation + the ``[9*C -> O]``
+    contraction in one kernel; the ``hopper`` entry also counts the taps
+    beyond their clamp radius (the ``pallas`` overflow counter).
   * :func:`modulated_deform_conv` -- dispatch by where the tensors lie: CUDA
-    tensors launch the kernel (or raise), CPU tensors take the plain version.
+    tensors launch a kernel (or raise), CPU tensors take the plain version.
 
 The cascade (counterpart of ``modulated_deform_conv_pallas_cascade``; used by
 ``dcn_impl: hybrid``): a base result with every offset clamped to +-R, and the
@@ -31,24 +37,27 @@ DCNv2 while no tap exceeds R_tail and the out-of-band blocks fit the slots; the
 two counters ``[blocks that did not fit, taps beyond R_tail]`` say when not.
 
   * :func:`cascade_selection` -- which blocks are selected, and the counters:
-    plain torch ops on the device, no host sync.
+    plain torch ops; :func:`cascade_row_radius` turns it into the per-row
+    radius table. Their kernel is :func:`cascade_select_cuda` (entry
+    ``dcn_cascade_select`` of ``csrc/dcn_hopper.cu``: one pass over ``offset``,
+    the last CTA scans the blocks).
   * :func:`modulated_deform_conv_cascade_ref` -- plain version: two calls of the
     plain op (clamp R, clamp R_tail) joined by ``torch.where`` on the selection.
-  * :func:`modulated_deform_conv_cascade_cuda` -- entry ``dcn_cascade_fwd`` of
-    ``csrc/dcn_fwd.cu``: ONE pass that clamps each pixel's taps at its image
-    row's radius (R_tail on rows of selected blocks, R elsewhere). On the TPU
-    the tail is a second, compacted launch because a pass costs (2R+1)^2 there;
-    a gather costs the same at any radius, so one pass does the same function
-    for the work of a plain one.
+  * :func:`modulated_deform_conv_cascade_cuda` -- the selection kernel, then ONE
+    pass of the entry :func:`route` picks, each pixel's taps clamped at its
+    image row's radius (R_tail on rows of selected blocks, R elsewhere). On the
+    TPU the tail is a second, compacted launch because a pass costs (2R+1)^2
+    there; a gather costs the same at any radius, so one pass does the same
+    function for the work of a plain one.
   * :func:`modulated_deform_conv_cascade` -- dispatch as above.
 
-Numerics shared by both: sampling in float32, the sampled column rounded once
+Numerics shared by all: sampling in float32, the sampled column rounded once
 to x's dtype, products accumulated in float32, bias added in float32, result
 cast to x's dtype.
 
-What bounds the kernel on an H100: the contraction, ``2*B*H*W*9*C*O`` FLOP,
-about level with the bytes of x, offset, mask and out; design notes are in
-the CUDA source.
+What bounds the kernels on an H100: the contraction, ``2*B*H*W*9*C*O`` FLOP,
+more than the bytes of x, offset, mask and out; design notes are in the CUDA
+sources.
 """
 
 from __future__ import annotations
@@ -60,15 +69,26 @@ import torch
 
 from . import _build
 
-launches = 0          # +1 per launch of dcn_fwd, nowhere else
-cascade_launches = 0  # +1 per launch of dcn_cascade_fwd, nowhere else
+launches = 0          # +1 per launch of a DCN entry (any of the three), nowhere else
+cascade_launches = 0  # +1 per launch of a cascade entry (any of the three), nowhere else
+launches_by_entry = {"hopper": 0, "wmma": 0, "f32": 0}          # +1 per launch of that entry
+cascade_launches_by_entry = {"hopper": 0, "wmma": 0, "f32": 0}  # the same, cascade entries
+select_launches = 0   # +1 per launch of dcn_cascade_select, nowhere else
+
+HOPPER_O = (128, 256)  # the output widths the Hopper entry serves
+_CB = 64               # its K chunk: 64 channels of one tap
 
 _KY = (-1, -1, -1, 0, 0, 0, 1, 1, 1)
 _KX = (-1, 0, 1, -1, 0, 1, -1, 0, 1)
 
 
 def clamp_table(max_offset, G: int, K: int = 9) -> torch.Tensor:
-    """``max_offset`` (None | int | [G][K]) -> float32 [G, K] radii, inf = no clamp."""
+    """``max_offset`` (None | int | [G][K] | a [G, K] tensor) -> float32 [G, K]
+    radii, inf = no clamp. A tensor is returned as it is, on its device."""
+    if isinstance(max_offset, torch.Tensor):
+        if tuple(max_offset.shape) != (G, K):
+            raise ValueError(f"clamp table must be [{G}, {K}], got {tuple(max_offset.shape)}")
+        return max_offset
     if max_offset is None:
         return torch.full((G, K), math.inf, dtype=torch.float32)
     if isinstance(max_offset, (tuple, list)):
@@ -77,6 +97,14 @@ def clamp_table(max_offset, G: int, K: int = 9) -> torch.Tensor:
             raise ValueError(f"per-tap max_offset must be [{G}][{K}], got {tuple(t.shape)}")
         return t
     return torch.full((G, K), float(max_offset), dtype=torch.float32)
+
+
+def clamp_overflow(offset, max_offset) -> torch.Tensor:
+    """int64 ``[0, taps with max(|dy|, |dx|) above their radius]`` (the ``pallas``
+    counter; plain version of the count the Hopper entry keeps)."""
+    r = clamp_table(max_offset, offset.shape[3]).to(offset.device)
+    beyond = (offset.float().abs().amax(dim=-1) > r).sum()
+    return torch.stack([torch.zeros_like(beyond), beyond])
 
 
 def _check(x, offset, mask, weight):
@@ -96,9 +124,10 @@ def _check(x, offset, mask, weight):
 
 
 def modulated_deform_conv_ref(x, offset, mask, weight, bias=None, max_offset=None,
-                              rows_per_chunk=None):
+                              return_overflow=False, rows_per_chunk=None):
     """Plain PyTorch DCNv2 forward; see module docstring. Output rows are
-    processed in chunks to bound the gathered ``[rows, W, G, K, Cg]`` buffers."""
+    processed in chunks to bound the gathered ``[rows, W, G, K, Cg]`` buffers.
+    ``return_overflow``: also :func:`clamp_overflow`."""
     B, H, W, C, O, G = _check(x, offset, mask, weight)
     K, Cg = 9, C // G
     dev = x.device
@@ -143,67 +172,131 @@ def modulated_deform_conv_ref(x, offset, mask, weight, bias=None, max_offset=Non
         if bias is not None:
             o = o + bias.float()
         outs.append(o.reshape(B, R, W, O))
-    return torch.cat(outs, dim=1).to(x.dtype)
+    out = torch.cat(outs, dim=1).to(x.dtype)
+    return (out, clamp_overflow(offset, max_offset)) if return_overflow else out
 
 
-_lib = None
+def hopper_envelope(dtype, C: int, O: int, G: int) -> bool:
+    """Whether the Hopper entry takes these widths (the envelope stated in
+    ``csrc/dcn_hopper.cu``; 16-byte alignment is the wrapper's business)."""
+    return dtype == torch.bfloat16 and G >= 1 and C % G == 0 and C % _CB == 0 \
+        and (C // G) % 32 == 0 and O in HOPPER_O
 
 
-def _kernel():
-    global _lib
-    if _lib is None:
-        lib = _build.load("dcn_fwd")
-        lib.dcn_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        lib.dcn_fwd.restype = ctypes.c_int
-        lib.dcn_cascade_fwd.argtypes = lib.dcn_fwd.argtypes
-        lib.dcn_cascade_fwd.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def route(x, offset, weight) -> str:
+    """The kernel entry a CUDA call with these inputs takes."""
+    if x.dtype == torch.float32:
+        return "f32"
+    if hopper_envelope(x.dtype, x.shape[-1], weight.shape[-1], offset.shape[3]):
+        return "hopper"
+    return "wmma"
 
 
-def _launch(entry, x, offset, mask, weight, bias, radii):
-    """Check, make contiguous, allocate the output and call one C entry of
-    ``dcn_fwd.cu``; ``radii`` is that entry's float32 clamp table on the device."""
-    if not (x.is_cuda and offset.is_cuda and mask.is_cuda and weight.is_cuda):
-        raise ValueError(f"{entry} needs CUDA tensors")
+_libs = None
+
+
+def _kernels():
+    """-> (library of dcn_fwd.cu, library of dcn_hopper.cu), argtypes set."""
+    global _libs
+    if _libs is None:
+        old, hop = _build.load("dcn_fwd"), _build.load("dcn_hopper")
+        for fn in (old.dcn_fwd, old.dcn_cascade_fwd):
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for fn in (hop.dcn_hopper_fwd, hop.dcn_hopper_cascade_fwd):
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        hop.dcn_cascade_select.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + \
+            [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        hop.dcn_cascade_select.restype = ctypes.c_int
+        hop.dcn_hopper_smem_bytes.restype = ctypes.c_int
+        _libs = (old, hop)
+    return _libs
+
+
+def hopper_smem_bytes(O: int) -> int:
+    """Dynamic shared memory a CTA of the Hopper entry asks for at O outputs."""
+    return int(_kernels()[1].dcn_hopper_smem_bytes(int(O)))
+
+
+def _aligned(t, n):
+    return t if t.data_ptr() % n == 0 else t.clone()
+
+
+def _check_entry(entry, x, offset, mask, weight):
+    """Shapes, dtype and the entry's envelope; raises ValueError. -> B, H, W, C, O, G."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
     B, H, W, C, O, G = _check(x, offset, mask, weight)
+    if entry not in launches_by_entry or (entry == "f32") != (x.dtype == torch.float32):
+        raise ValueError(f"entry {entry!r} does not take {x.dtype} inputs")
+    if entry == "hopper" and not hopper_envelope(x.dtype, C, O, G):
+        raise ValueError(f"the hopper entry does not take C={C}, O={O}, G={G} "
+                         f"(bf16, C % 64 == 0, Cg % 32 == 0, O in {HOPPER_O})")
     if O > 256:
         raise ValueError(f"O={O} not supported by the kernel (at most 256)")
-    if x.dtype == torch.bfloat16 and (C % 16 != 0 or O % 16 != 0):
+    if entry == "wmma" and (C % 16 != 0 or O % 16 != 0):
         raise ValueError(f"bfloat16 needs C and O to be multiples of 16, got C={C}, O={O}")
-    x = x.contiguous()
+    return B, H, W, C, O, G
+
+
+def _launch(entry, cascade, x, offset, mask, weight, bias, radii, count=None):
+    """Check, make contiguous, allocate the output and call one C entry;
+    ``radii`` is that entry's float32 clamp table on the device ([G*9], or
+    [B*H] for the cascade); ``count``: an int64 the Hopper entry adds the
+    taps beyond their radius to, or None."""
+    B, H, W, C, O, G = _check_entry(entry, x, offset, mask, weight)
+    if not (x.is_cuda and offset.is_cuda and mask.is_cuda and weight.is_cuda):
+        raise ValueError("the DCN kernels need CUDA tensors")
+    x = _aligned(x.contiguous(), 16)      # TMA and 16-byte gathers
     offset = offset.float().contiguous()
     mask = mask.float().contiguous()
-    w2 = weight.reshape(9 * C, O).to(x.dtype).contiguous()
-    if w2.data_ptr() % 32 != 0:  # wmma reads the weight in place: 32-byte aligned
-        w2 = w2.clone()
+    # TMA reads the weight at 16-byte, wmma at 32-byte alignment
+    w2 = _aligned(weight.reshape(9 * C, O).to(x.dtype).contiguous(), 32)
     b = None if bias is None else bias.float().contiguous()
     out = torch.empty((B, H, W, O), dtype=x.dtype, device=x.device)
+    old, hop = _kernels()
+    ptrs = [x.data_ptr(), offset.data_ptr(), mask.data_ptr(), w2.data_ptr(),
+            None if b is None else b.data_ptr(), radii.data_ptr(), out.data_ptr()]
     with torch.cuda.device(x.device):
-        err = getattr(_kernel(), entry)(
-            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), w2.data_ptr(),
-            None if b is None else b.data_ptr(), radii.data_ptr(), out.data_ptr(),
-            B, H, W, C, O, G, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err, entry)
+        stream = torch.cuda.current_stream().cuda_stream
+        if entry == "hopper":
+            fn = hop.dcn_hopper_cascade_fwd if cascade else hop.dcn_hopper_fwd
+            err = fn(*ptrs, None if count is None else count.data_ptr(), B, H, W, C, O, G, stream)
+        else:
+            fn = old.dcn_cascade_fwd if cascade else old.dcn_fwd
+            err = fn(*ptrs, B, H, W, C, O, G, int(x.dtype == torch.bfloat16), stream)
+    _build.check(err, fn.__name__)
     return out
 
 
-def modulated_deform_conv_cuda(x, offset, mask, weight, bias=None, max_offset=None):
+def modulated_deform_conv_cuda(x, offset, mask, weight, bias=None, max_offset=None,
+                               return_overflow=False, entry=None):
+    """Launches the entry :func:`route` picks; ``entry`` names another one that
+    takes these inputs (the first kernel, ``wmma``, to time the two side by
+    side). ``return_overflow``: the Hopper entry counts in the kernel; the
+    others leave it to :func:`clamp_overflow`."""
     global launches
-    radii = clamp_table(max_offset, offset.shape[3]).to(x.device).contiguous()
-    out = _launch("dcn_fwd", x, offset, mask, weight, bias, radii)
+    entry = route(x, offset, weight) if entry is None else entry
+    radii = clamp_table(max_offset, offset.shape[3]).to(x.device, torch.float32).contiguous()
+    count = None
+    if return_overflow and entry == "hopper":
+        overflow = torch.zeros(2, dtype=torch.int64, device=x.device)
+        count = overflow[1:]
+    out = _launch(entry, False, x, offset, mask, weight, bias, radii, count)
     launches += 1
-    return out
+    launches_by_entry[entry] += 1
+    if not return_overflow:
+        return out
+    return out, (overflow if count is not None else clamp_overflow(offset, radii))
 
 
-def modulated_deform_conv(x, offset, mask, weight, bias=None, max_offset=None):
-    """DCNv2 forward: the kernel for CUDA tensors, the plain version on the CPU."""
+def modulated_deform_conv(x, offset, mask, weight, bias=None, max_offset=None,
+                          return_overflow=False):
+    """DCNv2 forward: a kernel for CUDA tensors, the plain version on the CPU."""
     if x.is_cuda:
-        return modulated_deform_conv_cuda(x, offset, mask, weight, bias, max_offset)
-    return modulated_deform_conv_ref(x, offset, mask, weight, bias, max_offset)
+        return modulated_deform_conv_cuda(x, offset, mask, weight, bias, max_offset, return_overflow)
+    return modulated_deform_conv_ref(x, offset, mask, weight, bias, max_offset, return_overflow)
 
 
 # ------------------------------------------------------------- the cascade --
@@ -224,6 +317,13 @@ def cascade_slots(B: int, H: int, rows_per_block: int, capacity_frac: float):
     return n_rblk, n_sel
 
 
+def _radii_pair(max_offset, tail_offset):
+    R, Rt = int(max_offset), int(tail_offset)
+    if Rt <= R:
+        raise ValueError(f"tail_offset {Rt} must exceed max_offset {R}")
+    return R, Rt
+
+
 def cascade_selection(offset, max_offset=2, tail_offset=8, capacity_frac=0.125,
                       rows_per_step=16):
     """-> (row_selected bool [B, H], overflow int64 [2]) for the cascade.
@@ -233,9 +333,7 @@ def cascade_selection(offset, max_offset=2, tail_offset=8, capacity_frac=0.125,
     ``(image, block)`` order are selected. ``overflow`` is
     ``[out-of-band blocks - selected blocks, taps beyond R_tail]``. Torch ops
     on ``offset``'s device; nothing is read back."""
-    R, Rt = int(max_offset), int(tail_offset)
-    if Rt <= R:
-        raise ValueError(f"tail_offset {Rt} must exceed max_offset {R}")
+    R, Rt = _radii_pair(max_offset, tail_offset)
     B, H = offset.shape[:2]
     rpb = cascade_rows_per_block(Rt, rows_per_step)
     n_rblk, n_sel = cascade_slots(B, H, rpb, capacity_frac)
@@ -249,6 +347,39 @@ def cascade_selection(offset, max_offset=2, tail_offset=8, capacity_frac=0.125,
         .reshape(B, n_rblk * rpb)[:, :H]
     overflow = torch.stack([oob_blk.sum() - selected.sum(), (linf > Rt).sum()])
     return row_selected, overflow
+
+
+def cascade_row_radius(offset, max_offset=2, tail_offset=8, capacity_frac=0.125,
+                       rows_per_step=16):
+    """-> (row radius float32 [B, H]: R_tail on the rows of selected blocks, R
+    elsewhere; overflow int64 [2]). Plain version of :func:`cascade_select_cuda`."""
+    row_sel, overflow = cascade_selection(offset, max_offset, tail_offset, capacity_frac,
+                                          rows_per_step)
+    R, Rt = _radii_pair(max_offset, tail_offset)
+    return torch.where(row_sel, float(Rt), float(R)).to(torch.float32), overflow
+
+
+def cascade_select_cuda(offset, max_offset=2, tail_offset=8, capacity_frac=0.125,
+                        rows_per_step=16):
+    """:func:`cascade_row_radius` by the kernel ``dcn_cascade_select``: one read
+    of ``offset``, one launch (after the zeroing of its scratch)."""
+    global select_launches
+    if not offset.is_cuda:
+        raise ValueError("cascade_select_cuda needs a CUDA tensor")
+    R, Rt = _radii_pair(max_offset, tail_offset)
+    B, H, W, G = offset.shape[:4]
+    rpb = cascade_rows_per_block(Rt, rows_per_step)
+    n_rblk, n_sel = cascade_slots(B, H, rpb, capacity_frac)
+    off = offset.float().contiguous()
+    row_radius = torch.empty((B, H), dtype=torch.float32, device=offset.device)
+    scratch = torch.zeros(4 + B * n_rblk, dtype=torch.int64, device=offset.device)
+    with torch.cuda.device(offset.device):
+        err = _kernels()[1].dcn_cascade_select(
+            off.data_ptr(), row_radius.data_ptr(), scratch.data_ptr(), B, H, W * G * 9,
+            float(R), float(Rt), rpb, n_rblk, n_sel, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "dcn_cascade_select")
+    select_launches += 1
+    return row_radius, scratch[:2]
 
 
 def modulated_deform_conv_cascade_ref(x, offset, mask, weight, bias=None, max_offset=2,
@@ -266,21 +397,26 @@ def modulated_deform_conv_cascade_ref(x, offset, mask, weight, bias=None, max_of
 
 def modulated_deform_conv_cascade_cuda(x, offset, mask, weight, bias=None, max_offset=2,
                                        tail_offset=8, capacity_frac=0.125, rows_per_step=16,
-                                       return_overflow=False):
+                                       return_overflow=False, entry=None):
+    """The selection kernel, then one pass of the entry :func:`route` picks
+    (``entry`` names another one that takes these inputs)."""
     global cascade_launches
-    row_sel, overflow = cascade_selection(offset, max_offset, tail_offset, capacity_frac,
-                                          rows_per_step)
-    row_radius = torch.where(row_sel, float(int(tail_offset)), float(int(max_offset))) \
-        .to(torch.float32).contiguous()                               # [B, H]
-    out = _launch("dcn_cascade_fwd", x, offset, mask, weight, bias, row_radius)
+    entry = route(x, offset, weight) if entry is None else entry
+    _check_entry(entry, x, offset, mask, weight)
+    if not x.is_cuda:
+        raise ValueError("modulated_deform_conv_cascade_cuda needs CUDA tensors")
+    row_radius, overflow = cascade_select_cuda(offset, max_offset, tail_offset, capacity_frac,
+                                               rows_per_step)
+    out = _launch(entry, True, x, offset, mask, weight, bias, row_radius)
     cascade_launches += 1
+    cascade_launches_by_entry[entry] += 1
     return (out, overflow) if return_overflow else out
 
 
 def modulated_deform_conv_cascade(x, offset, mask, weight, bias=None, max_offset=2,
                                   tail_offset=8, capacity_frac=0.125, rows_per_step=16,
                                   return_overflow=False):
-    """The DCN cascade: the kernel for CUDA tensors, the plain version on the CPU."""
+    """The DCN cascade: the kernels for CUDA tensors, the plain version on the CPU."""
     fn = modulated_deform_conv_cascade_cuda if x.is_cuda else modulated_deform_conv_cascade_ref
     return fn(x, offset, mask, weight, bias, max_offset, tail_offset, capacity_frac,
               rows_per_step, return_overflow)

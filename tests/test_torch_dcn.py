@@ -8,6 +8,8 @@ absolute (the JAX tests' own): all sides are float32 and differ in the order of
 the 9*C-term sums and of the four bilinear corners.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -98,7 +100,8 @@ def test_warpblock_matches_jax(impl):
     """WarpBlock / DCNv2Pack with carried weights and a NON-zero conv_offset, so
     the offset-channel packing carried by ``convert`` is exercised. The JAX side
     of 'pallas' runs its XLA-dense equivalent 'chain' (same clamped semantics;
-    the Pallas kernel itself is covered above in interpret mode)."""
+    the Pallas kernel itself is covered above in interpret mode). The pack
+    builds its clamp table once, in ``configure``, not per forward."""
     rng = np.random.default_rng(3)
     x_vq = rng.standard_normal((2, 6, 8, 16)).astype(np.float32)
     h = rng.standard_normal((2, 6, 8, 16)).astype(np.float32)
@@ -112,8 +115,11 @@ def test_warpblock_matches_jax(impl):
     convert._put_conv(sd, "offset", params["offset"])
     convert._put_dcnpack(sd, "dcn", params["dcn"])
     blk.load_state_dict(sd)
+    table = blk.dcn.clamp_radii
+    assert table.tolist() == [[2.0 if impl == "pallas" else math.inf] * 9] * blk.dcn.G
     got = nhwc(blk(nchw(x_vq), nchw(h)))
     np.testing.assert_allclose(got, want, atol=2e-4)
+    assert blk.dcn.clamp_radii is table
     off, _ = blk.dcn.offsets_and_mask(blk.offset(torch.cat([nchw(x_vq), nchw(h)], 1)))
     n_beyond = int((off.abs().amax(-1) > 2).sum())
     assert n_beyond > 0, "test inputs must exercise the clamp"
@@ -121,6 +127,9 @@ def test_warpblock_matches_jax(impl):
         assert blk.dcn.dcn_overflow.tolist() == [0, n_beyond]
     else:
         assert blk.dcn.dcn_overflow is None
+    per_tap = tuple(tuple(1 + (g + k) % 3 for k in range(9)) for g in range(blk.dcn.G))
+    blk.dcn.configure("pallas", per_tap)          # a new table only from configure
+    assert blk.dcn.clamp_radii.tolist() == [list(map(float, r)) for r in per_tap]
 
 
 @pytest.mark.parametrize("impl", ["chain", "hybrid", "hybrid_gather"])
@@ -152,3 +161,81 @@ def test_kernel_matches_ref_on_gpu():
     assert tdcn.launches == before + 1
     want = tdcn.modulated_deform_conv_ref(*t, max_offset=PER_TAP + PER_TAP)
     assert (got - want).abs().max() < 2e-4
+
+
+# ---- routing and the envelope of the Hopper entry (no kernel runs here) ----
+
+def _shaped(B, H, W, C, G, O, dtype=torch.bfloat16):
+    return (torch.zeros(B, H, W, C, dtype=dtype), torch.zeros(B, H, W, G, 9, 2),
+            torch.ones(B, H, W, G, 9), torch.zeros(3, 3, C, O))
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((1, 210, 310, 256, 4, 256), torch.bfloat16, "hopper"),   # warp_0 of the paths
+    ((2, 420, 620, 128, 4, 128), torch.bfloat16, "hopper"),   # warp_1, batch 2
+    ((1, 9, 70, 64, 2, 128), torch.bfloat16, "hopper"),       # Cg 32
+    ((1, 9, 70, 256, 2, 256), torch.bfloat16, "hopper"),      # Cg 128
+    ((1, 9, 70, 64, 4, 128), torch.bfloat16, "wmma"),         # Cg 16
+    ((1, 210, 310, 256, 4, 256), torch.float32, "f32"),
+    ((2, 13, 17, 32, 4, 48), torch.bfloat16, "wmma"),         # C not a multiple of 64
+    ((1, 9, 70, 128, 4, 64), torch.bfloat16, "wmma"),         # O not 128 or 256
+    ((1, 9, 70, 192, 4, 128), torch.bfloat16, "wmma"),        # Cg 48
+], ids=lambda v: str(v).replace(" ", ""))
+def test_route_choice_by_dtype_and_widths(shape, dtype, want):
+    B, H, W, C, G, O = shape
+    x, off, mask, w = _shaped(1, 2, 3, C, G, O, dtype)
+    assert tdcn.route(x, off, w) == want
+    assert tdcn.hopper_envelope(dtype, C, O, G) == (want == "hopper")
+
+
+@pytest.mark.parametrize("shape,entry", [
+    ((1, 5, 6, 32, 4, 48), "hopper"),      # C % 64
+    ((1, 5, 6, 128, 4, 64), "hopper"),     # O
+    ((1, 5, 6, 192, 4, 128), "hopper"),    # Cg 48
+    ((1, 5, 6, 64, 4, 128), "hopper"),     # Cg 16
+    ((1, 5, 6, 128, 4, 128), "f32"),       # bf16 inputs on the float32 entry
+    ((1, 5, 6, 24, 4, 20), "wmma"),        # C, O not multiples of 16
+    ((1, 5, 6, 128, 4, 128), "tensor"),    # no such entry
+])
+def test_wrappers_refuse_shapes_outside_the_envelope(shape, entry):
+    """Refused before any device work, the launch counters untouched."""
+    B, H, W, C, G, O = shape
+    t = _shaped(B, H, W, C, G, O)
+    before = (tdcn.launches, tdcn.cascade_launches, tdcn.select_launches,
+              dict(tdcn.launches_by_entry), dict(tdcn.cascade_launches_by_entry))
+    with pytest.raises(ValueError, match="does not take|multiples of 16"):
+        tdcn.modulated_deform_conv_cuda(*t, max_offset=2, entry=entry)
+    with pytest.raises(ValueError, match="does not take|multiples of 16"):
+        tdcn.modulated_deform_conv_cascade_cuda(*t, entry=entry)
+    assert before == (tdcn.launches, tdcn.cascade_launches, tdcn.select_launches,
+                      dict(tdcn.launches_by_entry), dict(tdcn.cascade_launches_by_entry))
+
+
+def test_row_radius_table_is_the_selection():
+    """cascade_row_radius (the selection kernel's plain version): R_tail on the
+    rows of the selected blocks, R elsewhere, the same counters."""
+    rng = np.random.default_rng(8)
+    off = rng.uniform(-2, 2, (2, 37, 4, 2, 9, 2)).astype(np.float32)
+    off[0, 3, 1, 0, 4, 0] = 2.5
+    off[1, 30, 2, 1, 7, 1] = -9.0
+    t = torch.from_numpy(off)
+    rows, ov = tdcn.cascade_selection(t, 2, 8, 0.125)
+    rr, ov2 = tdcn.cascade_row_radius(t, 2, 8, 0.125)
+    assert rr.dtype == torch.float32 and rr.shape == (2, 37)
+    assert torch.equal(rr, torch.where(rows, 8.0, 2.0)) and ov2.tolist() == ov.tolist() == [0, 1]
+    assert rows[0, :8].all() and rows[1, 24:32].all() and int(rows.sum()) == 16
+    with pytest.raises(ValueError, match="CUDA"):
+        tdcn.cascade_select_cuda(t)
+
+
+@pytest.mark.gpu
+def test_hopper_kernel_matches_ref_on_gpu():
+    need_gpu()
+    t = [torch.from_numpy(a).cuda() for a in _inputs(7, 2, 13, 17, 128, 4, 128, spread=1.5)]
+    t[0] = t[0].to(torch.bfloat16)
+    before = dict(tdcn.launches_by_entry)
+    got, ov = tdcn.modulated_deform_conv(*t, max_offset=2, return_overflow=True)
+    assert tdcn.launches_by_entry["hopper"] == before["hopper"] + 1
+    want, wov = tdcn.modulated_deform_conv_ref(*t, max_offset=2, return_overflow=True)
+    assert ov.tolist() == wov.tolist()
+    assert (got.float() - want.float()).abs().max() <= 2 ** -7 * max(1.0, float(want.float().abs().max()))

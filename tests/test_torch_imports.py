@@ -49,11 +49,17 @@ def test_the_cascade_entry_is_exported_beside_the_plain_one():
     from glare_tpu_torch.ops import dcn
 
     for name in ("modulated_deform_conv_cascade", "modulated_deform_conv_cascade_ref",
-                 "modulated_deform_conv_cascade_cuda", "cascade_selection"):
+                 "modulated_deform_conv_cascade_cuda", "cascade_selection", "cascade_row_radius",
+                 "cascade_select_cuda", "route"):
         assert callable(getattr(dcn, name)), name
     assert isinstance(dcn.launches, int) and isinstance(dcn.cascade_launches, int)
+    assert isinstance(dcn.select_launches, int)
+    assert set(dcn.launches_by_entry) == set(dcn.cascade_launches_by_entry) == {"hopper", "wmma", "f32"}
     src = open(os.path.join(PKG, "csrc", "dcn_fwd.cu")).read()
     assert 'extern "C" int dcn_cascade_fwd(' in src and 'extern "C" int dcn_fwd(' in src
+    src = open(os.path.join(PKG, "csrc", "dcn_hopper.cu")).read()
+    for entry in ("dcn_hopper_fwd", "dcn_hopper_cascade_fwd", "dcn_cascade_select"):
+        assert f'extern "C" int {entry}(' in src, entry
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
