@@ -6,9 +6,10 @@
 Phases, each printing one JSON line:
   device     the card (nvidia-smi name + power limit), torch / CUDA versions
   build      compiles the five csrc/*.cu with nvcc (one process per source, all
-             started together) and loads them; ptxas registers, spills and shared
-             memory of the two Hopper sources (attn_hopper.cu, dcn_hopper.cu): a
-             spill, or warning C7515 (a serialized wgmma pipeline), fails the run
+             started together) and loads them; ptxas registers and spills of
+             vq_argmin.cu and of the two Hopper sources (attn_hopper.cu,
+             dcn_hopper.cu), with their shared memory: a spill, or warning C7515
+             (a serialized wgmma pipeline), fails the run
   kernels    every hand-written kernel entry against its plain PyTorch version on
              the card, at the shapes the main path gives it and at small ragged
              shapes; times by CUDA events (median after a warm-up). Attention:
@@ -80,6 +81,8 @@ PEAK_BYTES = 3.35e12
 H_IN, W_IN = 420, 620          # 400x600 protocol image + 20 px reflect pad
 N_TOK = (H_IN // 4) * (W_IN // 4)   # 16275 latent tokens
 N_PAD = -(-N_TOK // 2048) * 2048    # 16384: AttnBlock pads once to this
+H2, W2 = 400, 600                   # stage 2 pads to a multiple of 4 only
+N_TOK2 = (H2 // 4) * (W2 // 4)      # 15000 latent tokens
 
 # Stage-wise check of the main path. Each stage is run three ways on the same
 # inputs: bf16 through the kernels, bf16 through the plain versions, and in
@@ -150,7 +153,8 @@ def phase_build():
     regs = {}
     for name, log in _build.build_log.items():
         regs[name] = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln][:16]
-    reports = {"attn_hopper": {"smem_bytes": attn_ops.hopper_smem_bytes()},
+    reports = {"vq_argmin": {"layout": vq_ops.layout(8192, 3)},
+               "attn_hopper": {"smem_bytes": attn_ops.hopper_smem_bytes()},
                "dcn_hopper": {"smem_bytes": {O: dcn_ops.hopper_smem_bytes(O) for O in (128, 256)}}}
     for name, rep in reports.items():
         log = _build.build_log.get(name)
@@ -183,62 +187,147 @@ def vq_gap(z, e, got, want):
     return float(rel.max()), float(gap.max()), int((got != want).sum())
 
 
+def _vq_profile(zt, et, calls):
+    """torch.profiler over ``calls`` nearest_code_cuda calls -> (the device
+    kernels it saw, with their launch counts; mean device ms per call)."""
+    from torch.profiler import ProfilerActivity, profile
+    vq_ops.nearest_code_cuda(zt, et)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            vq_ops.nearest_code_cuda(zt, et)
+        torch.cuda.synchronize()
+    kernels, us = {}, 0.0
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA") and ev.self_device_time_total > 0:
+            kernels[ev.key[:80]] = ev.count
+            us += ev.self_device_time_total
+    return kernels, us / calls / 1e3
+
+
 def check_vq():
     """vq_argmin vs nearest_code_ref. Rule: indices equal wherever the best and
     second-best distances differ by more than 1e-6 relative; for every
-    mismatch the two chosen codes' true (float64) distances agree to 1e-6.
-    The error reported for this kernel is measured over every token of every
-    case: the largest |d(z, e[kernel's index]) - d(z, e[plain index])| in
-    float64, which is 0 exactly when no index differs (or only between exact
-    ties)."""
+    mismatch the two chosen codes' true (float64) distances agree to 1e-6;
+    exact ties (duplicated codes, also across the kernel's codebook slices)
+    to the lowest index. The error reported for this kernel is measured over
+    every token of every case: the largest |d(z, e[kernel's index]) -
+    d(z, e[plain index])| in float64, which is 0 exactly when no index
+    differs (or only between exact ties). Timed alone and through the
+    wrapper at the three token counts of the paths."""
     rng = np.random.default_rng(0)
     out = {}
     worst_abs = [0.0]
 
-    def compare(z, e, tag):
-        zt, et = dev(z), dev(e)
+    def compare(zt, et, tag):
         got = vq_ops.nearest_code_cuda(zt, et)
         torch.cuda.synchronize()
         want = vq_ops.nearest_code_ref(zt, et)
         require(got.dtype == torch.int32 and got.shape == want.shape, f"vq {tag}: bad output")
         g, w = got.cpu().numpy(), want.cpu().numpy()
+        z, e = zt.float().cpu().numpy(), et.float().cpu().numpy()   # the values both saw
         worst_rel, gap_abs, n_mism = vq_gap(z, e, g, w)
         require(worst_rel <= 1e-6,
                 f"vq {tag}: a token picked a code {worst_rel:.3e} (relative) farther")
         worst_abs[0] = max(worst_abs[0], gap_abs)
-        out[tag] = {"n": int(z.shape[0]), "mismatches": n_mism, "worst_rel_gap": worst_rel,
+        out[tag] = {"n": int(zt.shape[0]), "dtype": str(zt.dtype).split(".")[-1],
+                    "strides": list(zt.stride()), "mismatches": n_mism, "worst_rel_gap": worst_rel,
                     "max_abs_dist_gap": gap_abs}
-        return zt, et
+        return g
 
+    def exact_ties(zt, et, tag):
+        """Every token is a copy of a code: the kernel must return the lowest
+        index of that code's duplicates."""
+        g = compare(zt, et, tag)
+        z, e = zt.float().cpu().numpy(), et.float().cpu().numpy()
+        lowest = np.array([np.flatnonzero((e == row).all(axis=1))[0] for row in z])
+        require((g == lowest).all(), f"vq {tag}: exact ties must go to the lowest index "
+                                     f"({int((g != lowest).sum())} tokens did not)")
+
+    K = 8192
     z = (rng.standard_normal((N_TOK, 3)) * 0.5).astype(np.float32)
-    e = (rng.standard_normal((8192, 3)) * 0.5).astype(np.float32)
-    zt, et = compare(z, e, "main[16275x3 vs 8192]")
+    e = (rng.standard_normal((K, 3)) * 0.5).astype(np.float32)
+    zt, et = dev(z), dev(e)
+    compare(zt, et, "main[16275x3 vs 8192]")
     # constructed near-ties: duplicated codes (exact ties -> lowest index) and
     # tokens on the midpoint between two codes
     e2 = e[:1024].copy()
     e2[700:764] = e2[100:164]
     z2 = np.concatenate([e2[700:764], 0.5 * (e2[:200] + e2[200:400]),
                          (rng.standard_normal((37, 3)) * 0.5).astype(np.float32)]).astype(np.float32)
-    compare(z2, e2, "near_tie[301x3 vs 1024]")
-    got = vq_ops.nearest_code_cuda(dev(z2[:64]), dev(e2)).cpu().numpy()
-    require((got == np.arange(100, 164)).all(), "vq: exact ties must go to the lowest index")
+    compare(dev(z2), dev(e2), "near_tie[301x3 vs 1024]")
+    exact_ties(dev(z2[:64]), dev(e2), "exact ties[64x3 vs 1024]")
+    # duplicates across the kernel's codebook slices at K = 8192: at every slice
+    # boundary, a slice's first code copies the previous slice's last and a code
+    # of slice 0; the upper half copies some of the lower; the last code the first
+    lay = vq_ops.layout(K, 3)
+    per = lay["codes_per_slice"]
+    ed = e.copy()
+    for s_ in range(1, lay["slices"]):
+        ed[s_ * per] = ed[s_ * per - 1]
+        ed[s_ * per + 3] = ed[3 + s_]
+    ed[K // 2 + 200:K // 2 + 216] = ed[200:216]
+    ed[40] = ed[20]                                   # two groups of one slice
+    ed[K - 1] = ed[0]
+    pick = np.concatenate([[s_ * per for s_ in range(1, lay["slices"])],
+                           [s_ * per + 3 for s_ in range(1, lay["slices"])],
+                           np.arange(K // 2 + 200, K // 2 + 216), [40, K - 1]])
+    zd = np.concatenate([ed[pick], z[:3000]]).astype(np.float32)
+    compare(dev(zd), dev(ed), "cross-slice duplicates + 3000 random")
+    exact_ties(dev(ed[pick]), dev(ed), "cross-slice exact ties")
+    # ragged token counts: one token, a CTA's tile and one more / one less
+    tile = lay["tokens_per_cta"]
+    for n in (1, tile - 1, tile + 1):
+        compare(dev(z[:n]), et, f"N={n}[{n}x3 vs 8192]")
+    before = vq_ops.launches
+    empty = vq_ops.nearest_code_cuda(dev(z[:0]), et)
+    require(empty.shape == (0,) and vq_ops.launches == before, "vq: N = 0 must launch nothing")
+    # the caller's dtype and strides: bf16 z; z as VectorQuantizer2 makes it from
+    # an NCHW latent at B = 1 (a strided view, strides (1, H*W)); a column slice;
+    # a transposed-view codebook
+    zb = dev(z, torch.bfloat16)
+    compare(zb, et, "bf16 z[16275x3 vs 8192]")
+    nchw = dev(np.ascontiguousarray(z.reshape(1, H_IN // 4, W_IN // 4, 3).transpose(0, 3, 1, 2)))
+    zs = nchw.permute(0, 2, 3, 1).reshape(-1, 3)
+    require(not zs.is_contiguous() and zs.stride() == (1, N_TOK), f"vq: {zs.stride()}")
+    compare(zs, et, "strided z (B=1 NCHW view)[16275x3 vs 8192]")
+    wide = dev(rng.standard_normal((2000, 6)).astype(np.float32))
+    compare(wide[:, ::2], et, "column-slice z[2000x3 vs 8192]")
+    compare(wide.to(torch.bfloat16)[:, ::2], et, "column-slice bf16 z[2000x3 vs 8192]")
+    compare(zt[:4000], dev(np.ascontiguousarray(e.T)).t(), "transposed codebook[4000x3 vs 8192]")
     # generic D and a ragged K
     z3 = rng.standard_normal((77, 7)).astype(np.float32)
     e3 = rng.standard_normal((333, 7)).astype(np.float32)
-    compare(z3, e3, "ragged[77x7 vs 333]")
+    compare(dev(z3), dev(e3), "ragged[77x7 vs 333]")
+    kernels, _ = _vq_profile(zt, et, 1)
+    require(list(kernels.values()) == [1] and "vq_argmin" in next(iter(kernels)),
+            f"vq: one nearest_code_cuda call launched {kernels}")
 
-    ms = time_ms(lambda: vq_ops.nearest_code_cuda(zt, et))
-    plain = time_ms(lambda: vq_ops.nearest_code_ref(zt, et))
-    lib = time_ms(lambda: torch.cdist(zt, et).argmin(dim=1))
-    n, k, d = N_TOK, 8192, 3
-    b_ms, b_by = bound(2.0 * n * k * (d + 1), PEAK_F32, 4.0 * (n * d + k * d + n))
+    # times at the paths' token counts: stage 3 B = 1 and B = 2, stage 2
+    by_n = {}
+    for n in (N_TOK, 2 * N_TOK, N_TOK2):
+        zn = dev((rng.standard_normal((n, 3)) * 0.5).astype(np.float32))
+        compare(zn, et, f"timed[{n}x3 vs 8192]")
+        b_ms, b_by = bound(2.0 * n * K * 4, PEAK_F32, 4.0 * (n * 3 + K * 3 + n))
+        kern = _vq_profile(zn, et, 20)[1]
+        by_n[n] = {"kernel_ms": kern, "ms": time_ms(lambda: vq_ops.nearest_code_cuda(zn, et), reps=20),
+                   "plain_ms": time_ms(lambda: vq_ops.nearest_code_ref(zn, et)),
+                   "library_ms": time_ms(lambda: torch.cdist(zn, et).argmin(dim=1)),
+                   "bound_ms": b_ms, "bound_by": b_by, "kernel_share_of_bound": b_ms / kern}
+    main = by_n[N_TOK]
     return {"name": "vq_argmin", "route": "cuda", "source": "glare_tpu_torch/csrc/vq_argmin.cu",
             "replaces": "glare_tpu/ops/vq.py:42", "max_abs_err": worst_abs[0],
             "mismatches": sum(c["mismatches"] for c in out.values()),
-            "tol": "exact indices; near-ties within 1e-6 relative true distance; max_abs_err is "
-                   "the largest float64 distance gap between the kernel's and the plain code",
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-            "cases": out}
+            "tol": "exact indices; near-ties within 1e-6 relative true distance; exact ties to the "
+                   "lowest index; max_abs_err is the largest float64 distance gap between the "
+                   "kernel's and the plain code",
+            "ms": main["ms"], "kernel_ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "library_call": "torch.cdist + argmin", "layout": lay, "profiled_kernels_per_call": kernels,
+            "note": "ms: the wrapper nearest_code_cuda, CUDA events around one call (host work "
+                    "included); kernel_ms: the kernel's device time by torch.profiler, mean of 20 "
+                    "calls; by_shape: stage 3 B = 1, B = 2, stage 2",
+            "by_shape": {f"N={n}": t for n, t in by_n.items()}, "cases": out}
 
 
 def _sdpa_by_backend(q, k, v, n_true, want):
@@ -1114,10 +1203,6 @@ def phase_hybrid_path():
     return path_counts
 
 
-H2, W2 = 400, 600                       # the stage-2 evaluation pads to a multiple of 4 only
-N_TOK2 = (H2 // 4) * (W2 // 4)          # 15000 latent tokens
-
-
 def stage2_opt(dtype="bfloat16"):
     """The values of confs/train_stage2_LOL.yml that inference reads."""
     opt = lol_opt()
@@ -1297,7 +1382,7 @@ def main():
         path = PATHS[k["name"]]
         k["launches"] = k["launches_by_path"][path or "main_path"]
         require(path is None or k["launches"] > 0, f"kernel {k['name']} was never launched on {path}")
-    extras = ("library_call", "smem_bytes", "sdpa_by_backend")
+    extras = ("library_call", "kernel_ms", "smem_bytes", "sdpa_by_backend")
     emit({"kernels": [{**{key: k[key] for key in keys}, **{key: k[key] for key in extras if key in k}}
                       for k in kernels]})
     emit({"seconds": round(time.time() - t_start, 1)})

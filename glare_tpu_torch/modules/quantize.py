@@ -3,7 +3,8 @@
 stage-1 variant is not ported yet).
 
 The argmin goes through :mod:`glare_tpu_torch.ops.vq` (the hand-written kernel
-on a CUDA tensor).
+on a CUDA tensor), which reads the flattened tokens as they are: a view of the
+NHWC latent, in its dtype, with its strides.
 """
 
 from __future__ import annotations
