@@ -5,7 +5,7 @@
 
 Phases, each printing one JSON line:
   device     the card (nvidia-smi name + power limit), torch / CUDA versions
-  build      compiles the five csrc/*.cu with nvcc (one process per source, all
+  build      compiles the six csrc/*.cu with nvcc (one process per source, all
              started together) and loads them; ptxas registers and spills of
              vq_argmin.cu and of the two Hopper sources (attn_hopper.cu,
              dcn_hopper.cu), with their shared memory: a spill, or warning C7515
@@ -21,7 +21,10 @@ Phases, each printing one JSON line:
              Hopper entry's edges (ragged tiles, B = 2, borders, corners outside
              the halo, mask 0 / 1), the first kernel timed at the paths' shapes;
              the cascade with its selection kernel, which must agree with the
-             plain selection exactly
+             plain selection exactly. The DCN backward (csrc/dcn_bwd.cu) against
+             autograd of the plain version at the two training shapes (offsets
+             beyond the clamp, exactly 0, and grad_x), and the float32 forward
+             entry there
   main_path  stage-3 paired inference at the full width of confs/LOL.yml
              (bf16, 620x420, dcn_impl pallas / clamp 2, seeded random weights):
              two single-image requests and one batch of two through
@@ -35,10 +38,16 @@ Phases, each printing one JSON line:
   stage2_path  stage-2 inference at the full width of confs/train_stage2_LOL.yml
              (bf16, 600x400): LLFlowModel.get_sr -> decode_latent, the same
              stage-wise comparison
+  train_path  stage-3 training at the full width of confs/train_stage3_LOL.yml
+             (float32, dcn_impl chain, 256 crop, batch 2, seeded weights,
+             synthetic pairs): a warm-up step and three timed steps of
+             VQLLFLOWDModel.optimize_parameters, each through the f32 DCN forward,
+             dcn_bwd and vq_argmin and no plain version; frozen modules bit-equal;
+             one step's loss and gradients against the plain versions' autograd
 Every path is driven with the launch counts (attention and DCN: one per entry,
 see counters()) set to 0 just before and read just after; every attention launch
-of a path must land on the hopper entry, every DCN launch on the Hopper DCN
-entries (dcn_hopper, dcn_hopper_cascade with dcn_cascade_select).
+of an inference path must land on the hopper entry, every DCN launch on the
+Hopper DCN entries (dcn_hopper, dcn_hopper_cascade with dcn_cascade_select).
 Then the contract lines: {"kernels": [...]}, the card line, and last
 {"ok": true, "device": {...}}. Any failure raises: non-zero exit, no last line.
 
@@ -524,7 +533,7 @@ def _library_dcn(x, off, mask, wgt, bias, max_offset):
     return {"dtype": None, "ms": None, "got": None, "refused": refused}
 
 
-DCN_ENTRY_KEY = {"hopper": "dcn_hopper", "wmma": "dcn_fwd", "f32": "dcn_fwd"}
+DCN_ENTRY_KEY = {"hopper": "dcn_hopper", "wmma": "dcn_fwd", "f32": "dcn_fwd_f32"}
 CASCADE_ENTRY_KEY = {"hopper": "dcn_hopper_cascade", "wmma": "dcn_cascade_fwd", "f32": "dcn_cascade_fwd"}
 
 
@@ -827,8 +836,175 @@ def check_dcn_cascade():
     return cascade, select, first
 
 
+# the training crop (confs/train_stage3_LOL.yml: GT_size 256, batch 2, float32) and
+# the two DCNs it gives: warp_0 at quarter resolution, warp_1 at half
+TRAIN_GT, TRAIN_BATCH = 256, 2
+TRAIN_DCN = [("warp_0", TRAIN_BATCH, TRAIN_GT // 2, TRAIN_GT // 2, 256, 4, 256),
+             ("warp_1", TRAIN_BATCH, TRAIN_GT, TRAIN_GT, 128, 4, 128)]
+# the backward against autograd of the plain version: per output, max |kernel - plain|
+# over max |plain|. Both are float32 (no TF32); they sum in other orders (grad_weight
+# over up to B*H*W = 131,072 pixels, grad_offset / grad_mask over a group's channels,
+# grad_x by atomics in no fixed order).
+BWD_TOL = 1e-4
+BWD_OUTPUTS = ("grad_x", "grad_offset", "grad_mask", "grad_weight", "grad_bias")
+
+
+def _bwd_bound(B, H, W, C, G, O, need_x=False):
+    """Least time of one backward: the two products (2 x 2*P*9*C*O FLOP) on the
+    float32 units; x, offset, mask, grad_out and the weight read once, grad_offset,
+    grad_mask, grad_weight, grad_bias (and grad_x) written once."""
+    P = B * H * W
+    nbytes = 4 * (P * C + 2 * P * G * 9 * 3 + P * O + 2 * 9 * C * O + O + (P * C if need_x else 0))
+    return bound(2 * 2.0 * P * 9 * C * O, PEAK_F32, nbytes)
+
+
+def _bwd_parts_ms(go, x, off, mask, wgt):
+    """The backward's steps timed alone at the radius-2 table: the masked column,
+    the two products, the coordinate kernel and the scatter kernel."""
+    B, H, W, C = x.shape
+    G, O = off.shape[3], wgt.shape[-1]
+    lib = dcn_ops._bwd_kernels()
+    radii = dcn_ops.clamp_table(2, G).to(DEV).contiguous()
+    col = torch.empty((B * H * W, 9 * C), device=DEV)
+    gcol = torch.empty_like(col)
+    goff, gmask, gx = torch.empty_like(off), torch.empty_like(mask), torch.zeros_like(x)
+    go2, w2 = go.reshape(-1, O), wgt.reshape(9 * C, O)
+    gw = torch.zeros((9 * C, O), device=DEV)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    a = (B, H, W, C, G)
+    out = {
+        "im2col_ms": time_ms(lambda: lib.dcn_bwd_im2col(x.data_ptr(), off.data_ptr(), mask.data_ptr(),
+                                                        radii.data_ptr(), col.data_ptr(), *a, stream())),
+        "products_ms": time_ms(lambda: (gw.addmm_(col.t(), go2), torch.matmul(go2, w2.t(), out=gcol))),
+        "coord_ms": time_ms(lambda: lib.dcn_bwd_coord(x.data_ptr(), off.data_ptr(), mask.data_ptr(),
+                                                      radii.data_ptr(), gcol.data_ptr(), goff.data_ptr(),
+                                                      gmask.data_ptr(), *a, stream())),
+        "input_ms": time_ms(lambda: lib.dcn_bwd_input(off.data_ptr(), mask.data_ptr(), radii.data_ptr(),
+                                                      gcol.data_ptr(), gx.data_ptr(), *a, stream())),
+    }
+    del col, gcol, goff, gmask, gx, gw
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_dcn_bwd():
+    """The DCN backward (csrc/dcn_bwd.cu through modulated_deform_conv_backward_cuda)
+    against autograd of modulated_deform_conv_ref on the card, at the two training
+    shapes, float32, clamp radius 2: offsets of 1.5 px spread (about 18% of the
+    components beyond 2, whose gradient must be exactly 0), offsets exactly 0 (the
+    zero-initialised step: the floor-based derivative at integer positions), once
+    with grad_x (dcn_bwd_input), and once at warp_1 in two chunks of one image
+    (BWD_CHUNK_BYTES lowered for that call: the row and batch slices and the
+    grad_weight sum over chunks), with grad_x. Every output within BWD_TOL. Also the float32
+    forward entry (csrc/dcn_fwd.cu, entry f32) at the same shapes, which the training
+    path launches. -> (backward row, float32 forward row)."""
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for float32 products")
+    rng = np.random.default_rng(6)
+    cases, timed, fwd = {}, {}, {}
+    for (wname, B, H, W, C, G, O) in TRAIN_DCN:
+        x, off, mask, wgt, bias = _dcn_inputs(rng, B, H, W, C, G, O, torch.float32, 1.5)
+        go = dev(rng.standard_normal((B, H, W, O)).astype(np.float32))
+        fields = ("spread", "zero", "grad_x") if wname == "warp_0" else ("spread", "zero", "chunked")
+        for field in fields:
+            tag = f"{wname} {field}"
+            o = torch.zeros_like(off) if field == "zero" else off
+            need_x = field in ("grad_x", "chunked")
+            chunks = B if field == "chunked" else 1
+            before, by_entry = counters(), dict(dcn_ops.bwd_launches_by_entry)
+            chunk_bytes = dcn_ops.BWD_CHUNK_BYTES
+            if field == "chunked":
+                dcn_ops.BWD_CHUNK_BYTES = H * W * 9 * C * 4   # one image per chunk
+            try:
+                got = dcn_ops.modulated_deform_conv_backward_cuda(go, x, o, mask, wgt, max_offset=2,
+                                                                  need_x=need_x)
+            finally:
+                dcn_ops.BWD_CHUNK_BYTES = chunk_bytes
+            torch.cuda.synchronize()
+            require(moved_since(before) == {**{k: 0 for k in before}, "dcn_bwd": chunks},
+                    f"dcn_bwd {tag}: counters {moved_since(before)}")
+            moved_e = bwd_moved_since(by_entry)
+            require(moved_e == {"im2col": chunks, "coord": chunks, "input": chunks * need_x},
+                    f"dcn_bwd {tag}: kernel launches {moved_e}")
+            want = dcn_ops.modulated_deform_conv_backward_ref(go, x, o, mask, wgt, bias, max_offset=2,
+                                                              need_x=need_x)
+            errs = {}
+            for name, g, w in zip(BWD_OUTPUTS, got, want):
+                if w is None:
+                    require(g is None, f"dcn_bwd {tag}: {name} computed unasked")
+                    continue
+                require(g.shape == w.shape and bool(torch.isfinite(g).all()), f"dcn_bwd {tag}: {name} bad")
+                scale = float(w.abs().max())
+                errs[name] = {"max_abs_err": float((g - w).abs().max()), "max_abs_plain": scale}
+                errs[name]["rel"] = errs[name]["max_abs_err"] / max(scale, 1e-30)
+                require(scale > 0 and errs[name]["rel"] <= BWD_TOL,
+                        f"dcn_bwd {tag}: {name} {errs[name]} beyond {BWD_TOL}")
+            beyond = o.abs() > 2
+            require(bool((got[1][beyond] == 0).all()), f"dcn_bwd {tag}: gradient beyond the clamp")
+            cases[tag] = {"shape": [B, H, W, C, G, O], "need_x": need_x, "chunks": chunks,
+                          "components_beyond_2px": float(beyond.float().mean()), "outputs": errs}
+            del got, want
+            torch.cuda.empty_cache()
+        # times at the 'spread' inputs: the whole backward, its steps, and autograd of
+        # the plain version (its backward alone, the graph built once)
+        ms = time_ms(lambda: dcn_ops.modulated_deform_conv_backward_cuda(go, x, off, mask, wgt, max_offset=2))
+        parts = _bwd_parts_ms(go, x, off, mask, wgt)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (x, off, mask, wgt, bias)]
+            out = dcn_ops.modulated_deform_conv_ref(*leaves, max_offset=2)
+            plain = time_ms(lambda: torch.autograd.grad(out, leaves[1:], go, retain_graph=True),
+                            reps=3, warmup=1)
+            del out, leaves
+        torch.cuda.empty_cache()
+        b_ms, b_by = _bwd_bound(B, H, W, C, G, O)
+        timed[wname] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, **parts,
+                        "achieved_tflops": 4.0 * B * H * W * 9 * C * O / ms / 1e9,
+                        "max_rel_err": max(e["rel"] for c in cases.values() if c["shape"][2] == W
+                                           for e in c["outputs"].values())}
+        # the float32 forward entry the training path launches, at the same inputs
+        require(dcn_ops.route(x, off, wgt) == "f32", f"forward {wname}: not on the f32 entry")
+        before = counters()
+        y = dcn_ops.modulated_deform_conv_cuda(x, off, mask, wgt, bias, max_offset=2)
+        torch.cuda.synchronize()
+        require(moved_since(before) == {**{k: 0 for k in before}, "dcn_fwd_f32": 1},
+                f"forward {wname}: counters {moved_since(before)}")
+        y_ref = dcn_ops.modulated_deform_conv_ref(x, off, mask, wgt, bias, max_offset=2)
+        err = float((y - y_ref).abs().max())
+        require(err <= _dcn_tol(torch.float32, y_ref), f"forward f32 {wname}: {err}")
+        fb_ms, fb_by = _dcn_bound(B, H, W, C, G, O, 4)
+        f_ms = time_ms(lambda: dcn_ops.modulated_deform_conv_cuda(x, off, mask, wgt, bias, max_offset=2))
+        fwd[wname] = {"ms": f_ms, "max_abs_err": err, "tol": _dcn_tol(torch.float32, y_ref),
+                      "plain_ms": time_ms(lambda: dcn_ops.modulated_deform_conv_ref(
+                          x, off, mask, wgt, bias, max_offset=2), reps=3, warmup=1),
+                      "bound_ms": fb_ms, "bound_by": fb_by,
+                      "achieved_tflops": 2.0 * B * H * W * 9 * C * O / f_ms / 1e9}
+        del x, off, mask, wgt, bias, go, y, y_ref
+        torch.cuda.empty_cache()
+    mean = lambda t, key: sum(v[key] for v in t.values()) / len(t)  # noqa: E731
+    note = ("mean per launch over the two shapes one training step gives it (warp_0 x [2,128,128,256] -> 256, "
+            "warp_1 x [2,256,256,128] -> 128, G 4, R 2); library: torchvision is not installed (null)")
+    bwd = {"name": "dcn_bwd", "route": "cuda", "source": "glare_tpu_torch/csrc/dcn_bwd.cu",
+           "replaces": "glare_tpu/ops/dcn.py:185 (XLA autodiff of modulated_deform_conv_chain; "
+                       "no Pallas kernel)",
+           "max_abs_err": max(e["max_abs_err"] for c in cases.values() for e in c["outputs"].values()),
+           "tol": f"per output max|kernel - plain| <= {BWD_TOL} * max|plain|; zero beyond the clamp",
+           "ms": mean(timed, "ms"), "plain_ms": mean(timed, "plain_ms"), "bound_ms": mean(timed, "bound_ms"),
+           "bound_by": "operations" if all(t["bound_by"] == "operations" for t in timed.values()) else "bytes",
+           "library_ms": None,
+           "note": "ms: the whole backward (dcn_bwd_im2col, the two float32 products, dcn_bwd_coord; "
+                   "no grad_x); plain_ms: autograd of modulated_deform_conv_ref, its backward alone; " + note,
+           "by_shape": timed, "cases": cases}
+    f32 = {"name": "dcn_fwd_f32", "route": "cuda", "source": "glare_tpu_torch/csrc/dcn_fwd.cu",
+           "replaces": "glare_tpu/ops/dcn_pallas.py:55",
+           "max_abs_err": max(t["max_abs_err"] for t in fwd.values()), "tol": "f32: 2e-4",
+           "ms": mean(fwd, "ms"), "plain_ms": mean(fwd, "plain_ms"), "bound_ms": mean(fwd, "bound_ms"),
+           "bound_by": "operations" if all(t["bound_by"] == "operations" for t in fwd.values()) else "bytes",
+           "library_ms": None, "note": "the first kernel's float32 entry, the training path's forward; " + note,
+           "by_shape": fwd}
+    return bwd, f32
+
+
 def phase_kernels():
-    ks = [check_vq(), *check_attn(), *check_dcn(), *check_dcn_cascade()]
+    ks = [check_vq(), *check_attn(), *check_dcn(), *check_dcn_cascade(), *check_dcn_bwd()]
     emit({"phase": "kernels", "kernels": [
         {"name": k["name"], "max_err": k["max_abs_err"], "tol": k["tol"], "kernel_ms": k["ms"],
          "plain_ms": k["plain_ms"], "library_ms": k["library_ms"],
@@ -879,26 +1055,29 @@ def counters():
     require(attn_ops.launches == sum(by_entry.values()), "attention counts disagree")
     require(dcn_ops.launches == sum(dcn.values()) and dcn_ops.cascade_launches == sum(cas.values()),
             "DCN counts disagree")
+    bwd = dcn_ops.bwd_launches_by_entry
+    require(bwd["im2col"] == bwd["coord"] == dcn_ops.bwd_launches and bwd["input"] <= bwd["coord"],
+            f"DCN backward counts disagree: {dcn_ops.bwd_launches} launches, by kernel {bwd}")
     return {"vq_argmin": vq_ops.launches, "attn_hopper": by_entry["hopper"],
             "attn_wmma": by_entry["wmma"], "attn_f32": by_entry["f32"],
-            "dcn_hopper": dcn["hopper"], "dcn_fwd": dcn["wmma"] + dcn["f32"],
+            "dcn_hopper": dcn["hopper"], "dcn_fwd": dcn["wmma"], "dcn_fwd_f32": dcn["f32"],
             "dcn_hopper_cascade": cas["hopper"], "dcn_cascade_fwd": cas["wmma"] + cas["f32"],
-            "dcn_cascade_select": dcn_ops.select_launches}
+            "dcn_cascade_select": dcn_ops.select_launches, "dcn_bwd": dcn_ops.bwd_launches}
 
 
 def reset_counters():
     vq_ops.launches = attn_ops.launches = dcn_ops.launches = dcn_ops.cascade_launches = 0
-    dcn_ops.select_launches = 0
+    dcn_ops.select_launches = dcn_ops.bwd_launches = 0
     for table in (attn_ops.launches_by_entry, dcn_ops.launches_by_entry,
-                  dcn_ops.cascade_launches_by_entry):
+                  dcn_ops.cascade_launches_by_entry, dcn_ops.bwd_launches_by_entry):
         for entry in table:
             table[entry] = 0
 
 
 def dcn_on_hopper_only(moved, what):
     """Every DCN launch in ``moved`` went through the Hopper entries."""
-    require(moved["dcn_fwd"] == 0 and moved["dcn_cascade_fwd"] == 0,
-            f"{what}: DCN launches off the Hopper entry: {moved}")
+    require(moved["dcn_fwd"] == 0 and moved["dcn_fwd_f32"] == 0 and moved["dcn_cascade_fwd"] == 0
+            and moved["dcn_bwd"] == 0, f"{what}: DCN launches off the Hopper entry: {moved}")
 
 
 def moved_since(before):
@@ -906,22 +1085,40 @@ def moved_since(before):
     return {k: now[k] - before[k] for k in before}
 
 
+def bwd_moved_since(by_entry):
+    """Launches of each DCN backward kernel since ``by_entry`` (a copy of
+    dcn_ops.bwd_launches_by_entry)."""
+    return {e: dcn_ops.bwd_launches_by_entry[e] - by_entry[e] for e in by_entry}
+
+
+# (module, a function that reaches a kernel, its plain PyTorch version)
+PLAIN_VERSIONS = (
+    (vq_ops, "nearest_code", "nearest_code_ref"),
+    (attn_ops, "flash_attention_nhc", "flash_attention_nhc_ref"),
+    (dcn_ops, "modulated_deform_conv", "modulated_deform_conv_ref"),
+    (dcn_ops, "modulated_deform_conv_cascade", "modulated_deform_conv_cascade_ref"),
+    (dcn_ops, "cascade_select_cuda", "cascade_row_radius"),
+    (dcn_ops, "modulated_deform_conv_backward_cuda", "modulated_deform_conv_backward_ref"),
+)
+
+
 @contextlib.contextmanager
-def plain_versions():
-    """Route the kernel-bearing functions to their plain PyTorch versions
-    (for the comparison only; the port itself has no such switch)."""
-    saved = (vq_ops.nearest_code, attn_ops.flash_attention_nhc, dcn_ops.modulated_deform_conv,
-             dcn_ops.modulated_deform_conv_cascade)
-    vq_ops.nearest_code = vq_ops.nearest_code_ref
-    attn_ops.flash_attention_nhc = lambda q, k, v, n_true=None, pipeline=False: \
-        attn_ops.flash_attention_nhc_ref(q, k, v, n_true=n_true)
-    dcn_ops.modulated_deform_conv = dcn_ops.modulated_deform_conv_ref
-    dcn_ops.modulated_deform_conv_cascade = dcn_ops.modulated_deform_conv_cascade_ref
+def _swapped(attrs):
+    """Set ``{(module, name): value}`` for the block, then restore."""
+    saved = {key: getattr(*key) for key in attrs}
+    for (mod, name), value in attrs.items():
+        setattr(mod, name, value)
     try:
         yield
     finally:
-        (vq_ops.nearest_code, attn_ops.flash_attention_nhc, dcn_ops.modulated_deform_conv,
-         dcn_ops.modulated_deform_conv_cascade) = saved
+        for (mod, name), value in saved.items():
+            setattr(mod, name, value)
+
+
+def plain_versions():
+    """Route the kernel-bearing functions to their plain PyTorch versions
+    (for the comparison only; the port itself has no such switch)."""
+    return _swapped({(mod, kern): getattr(mod, plain) for mod, kern, plain in PLAIN_VERSIONS})
 
 
 def sync_ms(fn):
@@ -982,7 +1179,8 @@ def phase_main_path():
     temper_offset_heads(model.netG, seed=7, std=0.02)
     build_s = time.time() - t0
     expected = {"vq_argmin": 1, "attn_hopper": 11, "attn_wmma": 0, "attn_f32": 0,
-                "dcn_hopper": 2, "dcn_fwd": 0, "dcn_hopper_cascade": 0, "dcn_cascade_fwd": 0,
+                "dcn_hopper": 2, "dcn_fwd": 0, "dcn_fwd_f32": 0, "dcn_bwd": 0,
+                "dcn_hopper_cascade": 0, "dcn_cascade_fwd": 0,
                 "dcn_cascade_select": 0}
 
     # warm-up request (cuDNN autotuning, allocator), not counted
@@ -1100,7 +1298,8 @@ def phase_hybrid_path():
 
     model = build("hybrid")          # conf defaults: R 2, R_tail 8, capacity 0.125
     per_call = {"vq_argmin": 1, "attn_hopper": 11, "attn_wmma": 0, "attn_f32": 0,
-                "dcn_hopper": 0, "dcn_fwd": 0, "dcn_hopper_cascade": 2, "dcn_cascade_fwd": 0,
+                "dcn_hopper": 0, "dcn_fwd": 0, "dcn_fwd_f32": 0, "dcn_bwd": 0,
+                "dcn_hopper_cascade": 2, "dcn_cascade_fwd": 0,
                 "dcn_cascade_select": 2}
     model.get_sr(dev(seeded_image(99)))   # warm-up, not counted
     torch.cuda.synchronize()
@@ -1222,7 +1421,8 @@ def phase_stage2_path():
     # attention: 3 blocks in ConEncoder1 + 4 in the VQGAN decoder, each above the
     # 8192-token threshold at 15000 tokens; one codebook retrieval
     per_call = {"vq_argmin": 1, "attn_hopper": 7, "attn_wmma": 0, "attn_f32": 0,
-                "dcn_hopper": 0, "dcn_fwd": 0, "dcn_hopper_cascade": 0, "dcn_cascade_fwd": 0,
+                "dcn_hopper": 0, "dcn_fwd": 0, "dcn_fwd_f32": 0, "dcn_bwd": 0,
+                "dcn_hopper_cascade": 0, "dcn_cascade_fwd": 0,
                 "dcn_cascade_select": 0}
     model.decode_latent(model.get_sr(dev(seeded_image(98, 1, H2, W2))))   # warm-up
     torch.cuda.synchronize()
@@ -1284,12 +1484,215 @@ def phase_stage2_path():
     return path_counts
 
 
+def train_opt():
+    """The values of confs/train_stage3_LOL.yml that stage-3 training reads (the
+    port's own dict: no yaml here): full width, float32 (no mixed_precision), the
+    training default dcn_impl chain at radius 2, Adam (0.9, 0.99), lr 5e-5 with
+    10 warmup updates and the conf's relative milestones at niter 40000."""
+    opt = lol_opt()
+    opt.pop("inference_dtype")
+    opt.update({"name": "train_stage3_LOL", "is_train": True})
+    opt["datasets"] = {"train": {"quant": 32, "GT_size": TRAIN_GT, "batch_size": TRAIN_BATCH,
+                                 "log_low": True}}
+    opt["network_G"] = {"which_model_G": "VQLLFLOWDeformable",
+                        "flow": dict(lol_opt()["network_G"]["flow"])}
+    opt["train"] = {"manual_seed": 10, "lr_G": 5e-5, "weight_decay_G": 0, "beta1": 0.9, "beta2": 0.99,
+                    "lr_scheme": "MultiStepLR", "warmup_iter": 10, "lr_gamma": 0.5, "niter": 40000,
+                    "lr_steps": [int(f * 40000) for f in (0.5, 0.75, 0.9, 0.95)]}
+    return opt
+
+
+def train_batch(seed):
+    """A synthetic pair at the training crop: low-light LQ in the log domain, as the
+    dataset's log_low gives it, and a brighter GT in [0, 1]."""
+    lq = seeded_image(seed, TRAIN_BATCH, TRAIN_GT, TRAIN_GT)
+    gt = np.clip(np.exp(lq) * 5.0 + 0.05, 0.0, 1.0).astype(np.float32)
+    return {"LQ": dev(lq), "GT": dev(gt)}
+
+
+@contextlib.contextmanager
+def counted_plain_versions():
+    """Counts the calls of every plain version in PLAIN_VERSIONS made inside the
+    block -> a one-item list."""
+    calls = [0]
+
+    def counted(fn):
+        def call(*a, **k):
+            calls[0] += 1
+            return fn(*a, **k)
+        return call
+
+    with _swapped({(mod, plain): counted(getattr(mod, plain)) for mod, _, plain in PLAIN_VERSIONS}):
+        yield calls
+
+
+def condition_offset_heads(model, batch):
+    """Seeded heads whose DCN offsets stay off the integer grid: the offset
+    derivative jumps at integer sample positions, so two runs whose offsets differ
+    by rounding could take different corners there (the kernel run and the
+    plain-version run differ by rounding from warp_0 on). Each offset channel gets
+    a half-integer bias in [-2.5, 2.5] (the +-2.5 ones beyond the clamp radius 2)
+    and the weights are scaled until the input-dependent part stays within 0.25 px
+    on ``batch``. The DCN biases are raised by 1: the AFT's x_vq * mean(h) /
+    mean(x_vq) amplifies rounding by mean(h) / mean(x_vq)^2 where mean(x_vq) ~ 0.
+    -> the largest input-dependent part measured."""
+    packs = [w.dcn for w in model.netG.deformable_decoder.warp]
+    g = torch.Generator(device="cpu").manual_seed(8)
+    x_in = batch["LQ"].permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        for pack in packs:
+            n = 2 * pack.G * pack.K   # the reference packing: the first 2*G*K channels are (dy, dx)
+            pack.conv_offset.bias[:n] = (torch.randint(-3, 3, (n,), generator=g) + 0.5).to(DEV)
+            pack.bias += 1.0
+        spread = math.inf
+        for _ in range(4):
+            for pack in packs:
+                pack.audit_offsets = True
+            model._pipeline(x_in)
+            spread = max(float((p.last_offsets - p.conv_offset.bias[:2 * p.G * p.K].reshape(
+                p.G, p.K, 2)).abs().max()) for p in packs)
+            for pack in packs:
+                pack.audit_offsets, pack.last_offsets = False, None
+            if spread <= 0.25:
+                break
+            for pack in packs:
+                pack.conv_offset.weight *= 0.2 / spread
+    require(spread <= 0.25, f"offset heads: input-dependent part {spread} px after scaling")
+    return spread
+
+
+def _step_grads(model, batch):
+    """One step's loss and trainable gradients, without the update, and the
+    offsets' least distance from the integer grid."""
+    packs = [w.dcn for w in model.netG.deformable_decoder.warp]
+    for pack in packs:
+        pack.audit_offsets = True
+    model.optimizer.zero_grad(set_to_none=True)
+    total, parts = model.train_losses(batch["LQ"], batch["GT"])
+    total.backward()
+    gap = min(float((p.last_offsets.detach() - p.last_offsets.detach().round()).abs().min()) for p in packs)
+    for pack in packs:
+        pack.audit_offsets, pack.last_offsets = False, None
+    grads = {n: p.grad.detach().clone() for n, p in model.trainable_parameters()}
+    model.optimizer.zero_grad(set_to_none=True)
+    return float(total.detach()), [float(t.detach()) for t in parts], grads, gap
+
+
+STEP_LOSS_TOL = 1e-5    # relative
+STEP_GRAD_TOL = 1e-3    # of each tensor's largest gradient
+STEP_VANISH = 1e-6      # of the step's largest gradient: a tensor that vanishes in exact arithmetic
+
+
+def phase_train_path():
+    """Stage-3 training at the full width of confs/train_stage3_LOL.yml, float32, the
+    256 crop at batch 2, seeded weights, synthetic pairs: one warm-up step (its
+    update is 0: warmup from count 0) and three timed steps through
+    VQLLFLOWDModel.optimize_parameters, launch counters per step; then one step's
+    loss and gradients through the kernels against the same step through the
+    plain versions (autograd of modulated_deform_conv_ref for the DCN)."""
+    from glare_tpu_torch.models import create_model
+    from glare_tpu_torch.models.vqllflowd_model import FROZEN, temper_offset_heads
+
+    require(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+            "TF32 is on: the float32 training path would not be float32")
+    t0 = time.time()
+    model = create_model(train_opt(), device="cuda")
+    temper_offset_heads(model.netG, seed=7, std=0.02)
+    build_s = time.time() - t0
+    batches = [train_batch(60 + i) for i in range(5)]
+    spread = condition_offset_heads(model, batches[0])
+    per_step = {**{k: 0 for k in counters()}, "vq_argmin": 1, "dcn_fwd_f32": 2, "dcn_bwd": 2}
+    # x of both warps is the VQ decoder's tap, under no-grad: no grad_x kernel
+    bwd_per_step = {"im2col": 2, "coord": 2, "input": 0}
+    frozen0 = {n: p.detach().clone() for n, p in model.netG.named_parameters()
+               if n.split(".", 1)[0] in FROZEN}
+    vq0 = {n: t.detach().clone() for n, t in model.net_hq.state_dict().items()}
+    taps = 2 * sum(TRAIN_BATCH * (TRAIN_GT // s) ** 2 * 4 * 9 for s in (2, 1))
+
+    reset_counters()
+    steps, moved_after = [], []
+    with counted_plain_versions() as plain_calls:
+        for i, batch in enumerate(batches[:4]):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            params0 = {n: p.detach().clone() for n, p in model.trainable_parameters()}
+            before, by_entry = counters(), dict(dcn_ops.bwd_launches_by_entry)
+            losses, ms = sync_ms(lambda: model.optimize_parameters(batch))
+            moved, moved_e = moved_since(before), bwd_moved_since(by_entry)
+            require(moved == per_step, f"train step {i}: launches {moved} != {per_step}")
+            require(moved_e == bwd_per_step,
+                    f"train step {i}: DCN backward kernels {moved_e} != {bwd_per_step}")
+            require(plain_calls[0] == 0, f"train step {i}: {plain_calls[0]} plain-version calls")
+            require(all(math.isfinite(v) for v in losses), f"train step {i}: losses {losses}")
+            top = max(float(p.grad.abs().max()) for _, p in model.trainable_parameters())
+            changed = [not torch.equal(p, params0[n]) for n, p in model.trainable_parameters()]
+            live = [float(p.grad.abs().max()) > STEP_VANISH * top for _, p in model.trainable_parameters()]
+            moved_after.append((sum(changed), sum(c for c, lv in zip(changed, live) if lv), sum(live)))
+            ov = model.last_dcn_overflow()
+            steps.append({"step": i, "ms": ms, "images_per_s": TRAIN_BATCH / ms * 1e3,
+                          "lr": model.schedule(i), "losses": dict(model.get_current_log()),
+                          "launches": moved, "dcn_bwd_kernels": moved_e,
+                          "trainable_tensors_changed": moved_after[-1][0],
+                          "dcn_overflow": ov, "clamp_share": ov["taps_beyond_tail"] / taps})
+    path_counts = counters()
+    peak_mem = torch.cuda.max_memory_allocated()
+    # (changed, changed of those with a gradient above STEP_VANISH of the step's largest, such)
+    require(moved_after[0][0] == 0, "the warm-up step (lr 0) changed a parameter")
+    require(all(live_changed == live > 0 for _, live_changed, live in moved_after[1:]),
+            f"trainable tensors with a gradient that did not move: {moved_after}")
+    for n, p in model.netG.named_parameters():
+        if n.split(".", 1)[0] in FROZEN:
+            require(not p.requires_grad and torch.equal(p, frozen0[n]), f"frozen {n} changed")
+    for n, t in model.net_hq.state_dict().items():
+        require(torch.equal(t, vq0[n]), f"VQGAN {n} changed")
+
+    # one step's loss and gradients: kernels against the plain versions, same weights and batch
+    loss_k, parts_k, grads_k, gap_k = _step_grads(model, batches[4])
+    with plain_versions():
+        before = counters()
+        loss_p, parts_p, grads_p, gap_p = _step_grads(model, batches[4])
+        torch.cuda.synchronize()
+        require(counters() == before, "the plain-version step launched a kernel")
+    top = max(float(g.abs().max()) for g in grads_p.values())
+    worst, vanishing = {}, []
+    for n, gp in grads_p.items():
+        err = float((grads_k[n] - gp).abs().max())
+        scale = float(gp.abs().max())
+        if scale <= STEP_VANISH * top:
+            vanishing.append(n)
+            require(float(grads_k[n].abs().max()) <= STEP_VANISH * top, f"gradient {n} does not vanish")
+        else:
+            worst[n] = err / scale
+    worst_name = max(worst, key=worst.get)
+    cmp = {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+           "parts_kernel": parts_k, "parts_plain": parts_p, "grad_worst_rel": worst[worst_name],
+           "grad_worst_tensor": worst_name, "vanishing_tensors": vanishing,
+           "offset_grid_gap": [gap_k, gap_p],
+           "tol": f"loss {STEP_LOSS_TOL} relative; each gradient within {STEP_GRAD_TOL} of its largest "
+                  f"(a tensor below {STEP_VANISH} of the step's largest must vanish on both)"}
+    timed = steps[1:]
+    ms_mean = sum(t["ms"] for t in timed) / len(timed)
+    emit({"phase": "train_path", "config": "confs/train_stage3_LOL.yml widths, float32, dcn_impl chain R=2",
+          "crop": [TRAIN_GT, TRAIN_GT], "batch": TRAIN_BATCH, "model_build_s": round(build_s, 2),
+          "offset_heads": {"bias": "half-integers in [-2.5, 2.5]", "input_dependent_px": spread,
+                           "dcn_bias": "+1"},
+          "steps": steps, "ms_per_step": ms_mean, "images_per_s": TRAIN_BATCH / ms_mean * 1e3,
+          "launches_total": path_counts, "expected_per_step": per_step,
+          "max_memory_allocated": peak_mem, "kernel_vs_plain_step": cmp})
+    require(min(gap_k, gap_p) > 0.02, f"offsets within {min(gap_k, gap_p)} px of the integer grid")
+    require(cmp["loss_rel"] <= STEP_LOSS_TOL, f"step loss: kernels {loss_k}, plain {loss_p}")
+    require(worst[worst_name] <= STEP_GRAD_TOL, f"gradient {worst_name}: {worst[worst_name]}")
+    return path_counts, model
+
+
 def _category(name):
     n = name.lower()
     for key, cat in (("attn_hopper_kernel", "attention (this repo)"),
                      ("attn_bf16_kernel", "attention (this repo)"), ("attn_f32_kernel", "attention (this repo)"),
                      ("dcn_hopper_kernel", "dcn (this repo)"), ("cascade_select_kernel", "dcn (this repo)"),
                      ("dcn_bf16_kernel", "dcn (this repo)"), ("dcn_f32_kernel", "dcn (this repo)"),
+                     ("im2col_kernel", "dcn backward (this repo)"), ("coord_kernel", "dcn backward (this repo)"),
+                     ("input_kernel", "dcn backward (this repo)"),
                      ("vq_argmin", "vq_argmin (this repo)"),
                      ("groupnorm", "group norm"), ("group_norm", "group norm"), ("rowwisemoments", "group norm"),
                      ("cudnn", "conv / gemm (library)"), ("conv", "conv / gemm (library)"),
@@ -1302,19 +1705,18 @@ def _category(name):
     return "other"
 
 
-def phase_profile(model):
-    """One traced get_sr (batch 1): device time by kernel category, busy and idle share."""
+def phase_profile(fn, what):
+    """One traced call of ``fn``: device time by kernel category, busy and idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    lq = dev(seeded_image(5))
-    model.get_sr(lq)
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.get_sr(lq)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    _, untraced_ms = sync_ms(lambda: model.get_sr(lq))
+    _, untraced_ms = sync_ms(fn)
     cats, names, n_kernels = {}, {}, 0
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).endswith("CUDA") or getattr(ev, "is_device", False):
@@ -1330,7 +1732,7 @@ def phase_profile(model):
     busy = sum(cats.values())
     require(busy > 0, "torch.profiler recorded no device time")
     top = sorted(names.items(), key=lambda kv: -kv[1])[:12]
-    emit({"phase": "profile", "what": "one get_sr, batch 1, 620x420, bf16", "traced_wall_ms": wall_ms,
+    emit({"phase": "profile", "what": what, "traced_wall_ms": wall_ms,
           "untraced_wall_ms": untraced_ms, "device_busy_ms": busy,
           "device_idle_share_of_untraced": max(0.0, 1.0 - busy / untraced_ms),
           "kernel_launches": n_kernels,
@@ -1341,9 +1743,10 @@ def phase_profile(model):
 # the path whose count a kernel's "launches" reports (and on which it must have
 # run); None: an entry that no path launches, reported with the main path's 0
 PATHS = {"vq_argmin": "main_path", "attn_hopper": "main_path", "attn_wmma": None, "attn_f32": None,
-         "dcn_hopper": "main_path", "dcn_fwd": None, "dcn_hopper_cascade": "hybrid_path",
+         "dcn_hopper": "main_path", "dcn_fwd": None, "dcn_fwd_f32": "train_path", "dcn_bwd": "train_path",
+         "dcn_hopper_cascade": "hybrid_path",
          "dcn_cascade_select": "hybrid_path", "dcn_cascade_fwd": None}
-ALL_PHASES = "device,build,kernels,main_path,hybrid_path,stage2_path"
+ALL_PHASES = "device,build,kernels,main_path,hybrid_path,stage2_path,train_path"
 
 
 def main():
@@ -1351,8 +1754,8 @@ def main():
     ap.add_argument("--phases", default=ALL_PHASES,
                     help="comma list; the last line is printed only when all of them ran")
     ap.add_argument("--profile", action="store_true",
-                    help="after main_path, trace one get_sr with torch.profiler and print "
-                         "device time by kernel category")
+                    help="after main_path, trace one get_sr (after train_path, one training "
+                         "step) with torch.profiler and print device time by kernel category")
     args = ap.parse_args()
     phases = args.phases.split(",")
     t_start = time.time()
@@ -1364,7 +1767,8 @@ def main():
     if "main_path" in phases:
         counts["main_path"], model = phase_main_path()
         if args.profile:
-            phase_profile(model)
+            lq = dev(seeded_image(5))
+            phase_profile(lambda: model.get_sr(lq), "one get_sr, batch 1, 620x420, bf16")
         del model
         torch.cuda.empty_cache()
     if "hybrid_path" in phases:
@@ -1372,6 +1776,14 @@ def main():
         torch.cuda.empty_cache()
     if "stage2_path" in phases:
         counts["stage2_path"] = phase_stage2_path()
+        torch.cuda.empty_cache()
+    if "train_path" in phases:
+        counts["train_path"], model = phase_train_path()
+        if args.profile:
+            batch = train_batch(70)
+            phase_profile(lambda: model.optimize_parameters(batch),
+                          "one stage-3 training step, batch 2, 256x256, float32")
+        del model
     if any(ph not in phases for ph in ALL_PHASES.split(",")):
         emit({"partial": True, "phases": phases, "seconds": round(time.time() - t_start, 1)})
         return

@@ -1,0 +1,178 @@
+"""Stage-3 training on the GPU (counterpart of ``glare_tpu/cli/train.py``).
+
+    python -m glare_tpu_torch.cli.train --stage 3 --opt confs/train_stage3_LOL.yml \
+        [--niter N] [--device cpu]
+
+Runs on ``cuda`` unless ``--device cpu`` is given; with no GPU and no explicit
+``--device cpu`` it raises. Kept from the JAX loop: ``resume_state: auto``
+discovery, experiment-dir archival, the ``--niter`` override (with
+``lr_steps_rel`` re-expanded), ``print_freq`` logging, the checkpoint cadence
+(``save_checkpoint_freq``, denser past 30k / 40k / 50k iterations), a non-finite
+loss reloading the newest training state, validation every ``val_freq`` through
+``get_sr`` with best-PSNR snapshots, and 2 kept training states. Artifacts:
+``{iter}_G.pth`` under ``models/`` (a ``state_dict`` the inference CLIs load)
+and ``{iter}.state`` under ``training_state/``.
+
+Stage 2 (``--stage 2``) is not ported yet (ROADMAP.md) and raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import math
+import os
+import time
+
+import numpy as np
+
+from ..data import create_dataloader, create_dataset
+from ..models import create_model
+from ..models.base_model import resolve_device
+from ..options import dict2str, dict_to_nonedict, parse
+from ..utils import Timer, TickTock, mkdir_and_rename, mkdirs, set_random_seed, setup_logger
+from ..utils.metrics import PSNR, gray_mean_adjust
+from ..utils.util import get_resume_paths, opt_get
+
+
+def get_resume_state(opt):
+    resume_state_path, _ = get_resume_paths(opt)
+    if resume_state_path is None or not os.path.isfile(resume_state_path):
+        return None
+    return resume_state_path
+
+
+def main(stage=3, argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--stage", type=int, default=stage)
+    parser.add_argument("--opt", default=None)
+    parser.add_argument("--niter", type=int, default=None, help="override train.niter")
+    parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    args = parser.parse_args(argv)
+    if args.stage != 3:
+        raise NotImplementedError(
+            f"stage-{args.stage} training is not ported yet (ROADMAP.md, queue 1); "
+            "glare_tpu_torch trains stage 3")
+    device = resolve_device(args.device)
+    opt = parse(args.opt or f"./confs/train_stage{args.stage}_LOL.yml", is_train=True)
+    if args.niter:
+        opt["train"]["niter"] = args.niter
+        if opt["train"].get("lr_steps_rel"):
+            opt["train"]["lr_steps"] = [int(x * args.niter) for x in opt["train"]["lr_steps_rel"]]
+    opt = dict_to_nonedict(opt)
+
+    resume_state_path = get_resume_state(opt)
+    if resume_state_path is None:
+        mkdir_and_rename(opt["path"]["experiments_root"])
+        mkdirs(path for key, path in opt["path"].items()
+               if isinstance(path, str) and key not in ("experiments_root", "root")
+               and "pretrain" not in key and "resume" not in key and "strict" not in key)
+
+    setup_logger("base", opt["path"]["log"], "train_" + opt["name"], level=logging.INFO,
+                 screen=True, tofile=True)
+    logger = logging.getLogger("base")
+    logger.info(dict2str(opt))
+
+    seed = opt_get(opt, ["train", "manual_seed"], 10) or 10
+    set_random_seed(seed)
+
+    train_set = create_dataset(opt["datasets"]["train"], train=True, all_opt=opt)
+    train_loader = create_dataloader(True, train_set, opt["datasets"]["train"], opt, seed=seed)
+    val_set = create_dataset(opt["datasets"]["val"], train=False, all_opt=opt)
+    val_loader = create_dataloader(False, val_set, opt["datasets"]["val"], opt, seed=seed)
+
+    total_iters = int(opt["train"]["niter"])
+    total_epochs = int(math.ceil(total_iters / max(len(train_loader), 1)))
+    logger.info("Total epochs: %d, iters: %d", total_epochs, total_iters)
+
+    model = create_model(opt, device=device)
+    current_step, start_epoch = 0, 0
+    if resume_state_path is not None:
+        logger.info("Resuming from %s", resume_state_path)
+        start_epoch, current_step = model.resume_training(resume_state_path)
+
+    timer, tick_tock = Timer(), TickTock()
+    print_freq = opt["logger"]["print_freq"] or 100
+    save_freq = int(opt["logger"]["save_checkpoint_freq"] or 1000)
+    val_freq = int(opt["train"]["val_freq"] or 10 ** 12)
+    best_psnr = -1.0
+
+    t_start = time.time()
+    epoch = start_epoch
+    for epoch in range(start_epoch, total_epochs + 10):
+        if current_step > total_iters:
+            break
+        tick_tock.tick()
+        for batch in train_loader:
+            tick_tock.tock()
+            current_step += 1
+            if current_step > total_iters:
+                break
+            timer.tick()
+            model.optimize_parameters({"LQ": batch["LQ"], "GT": batch["GT"]}, current_step)
+            timer.tock()
+
+            # a non-finite loss reloads the newest training state
+            log_vals = list(model.get_current_log().values())
+            if log_vals and not all(math.isfinite(v) for v in log_vals):
+                logger.warning("Non-finite loss at iter %d: %s -- reloading newest state",
+                               current_step, model.get_current_log())
+                state_path, _ = get_resume_paths({"path": dict(opt["path"], resume_state="auto")})
+                if state_path and os.path.isfile(state_path):
+                    _, current_step = model.resume_training(state_path)
+                    continue
+                raise FloatingPointError(
+                    f"non-finite loss at iter {current_step} and no state to reload")
+
+            if current_step % print_freq == 0:
+                avg_it = timer.get_average_and_reset()
+                tick_tock.get_average_and_reset()
+                eta = (total_iters - current_step) * max(avg_it, 0)
+                logger.info(
+                    f"<epoch:{epoch:3d}, iter:{current_step:8,d}, "
+                    f"lr:{model.schedule(current_step):.3e}> "
+                    + " ".join(f"{k}: {v:.4e}" for k, v in model.get_current_log().items())
+                    + f" it/s:{1.0 / max(avg_it, 1e-9):.2f} eta:{eta / 3600:.2f}h")
+
+            dens = ((current_step > 50000 and current_step % 50 == 0)
+                    or (current_step > 40000 and current_step % 100 == 0)
+                    or (current_step > 30000 and current_step % 200 == 0))
+            if current_step % save_freq == 0 or dens:
+                logger.info("Saving models and training states.")
+                model.save(current_step)
+                model.save_training(epoch, current_step)
+
+            if current_step % val_freq == 0:
+                psnr = validate(model, val_loader, current_step, logger)
+                if psnr > best_psnr:
+                    best_psnr = psnr
+                    model.save(f"best_psnr_{current_step}")
+            tick_tock.tick()
+
+    # the loop leaves current_step one past the last update; the JAX loop labels
+    # its final save with that count, the port with the updates made
+    current_step = min(current_step, total_iters)
+    model.save(current_step)
+    model.save_training(epoch, current_step)
+    logger.info("End of training. Total time: %.1fs", time.time() - t_start)
+    return model, current_step
+
+
+def validate(model, val_loader, step, logger, n_max=4):
+    """Mean PSNR (after the gray-mean adjustment) of the first ``n_max`` images."""
+    psnrs = []
+    for i, batch in enumerate(val_loader):
+        if i >= n_max:
+            break
+        gt = np.asarray(batch["GT"])[0]
+        sr = np.clip(model.get_sr(batch["LQ"]).cpu().numpy()[0], 0, 1)
+        if sr.shape != gt.shape:
+            sr = sr[: gt.shape[0], : gt.shape[1]]
+        psnrs.append(PSNR(gt, gray_mean_adjust(sr, gt)))
+    mean_psnr = float(np.mean(psnrs)) if psnrs else float("nan")
+    logger.info("# Validation # PSNR: %.4f (step %d)", mean_psnr, step)
+    return mean_psnr
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
 """Weights carried across: flax param trees -> torch ``state_dict``s.
 
-``flax_to_torch_vqgan(params)``, ``flax_to_torch_stage2(params)`` and
-``flax_to_torch_stage3(params)`` take nested
+``flax_to_torch_vqgan(params)``, ``flax_to_torch_stage2(params)``,
+``flax_to_torch_stage3(params)`` and ``flax_to_torch_vgg16(params)`` (the
+perceptual loss's ``VGG16Features``) take nested
 dicts of numpy arrays (what ``flax.serialization.to_state_dict`` or
 ``jax.tree_util.tree_map(np.asarray, params)`` give) and return a ``state_dict``
 of torch tensors under the reference PyTorch names. They are the inverses of the
@@ -176,4 +177,13 @@ def flax_to_torch_stage3(params):
     _put_cond_encoder(sd, "RRDB", params["RRDB"])
     _put_flow_upsampler(sd, "flowUpsamplerNet", params["flowUpsamplerNet"])
     _put_aft_decoder(sd, "deformable_decoder", params["deformable_decoder"])
+    return sd
+
+
+def flax_to_torch_vgg16(params):
+    """flax ``VGG16Features`` params (``conv_{i}``, HWIO) -> the port's
+    ``VGG16Features`` ``state_dict`` (``convs.{i}``, OIHW)."""
+    sd = {}
+    for i in range(7):
+        _put_conv(sd, f"convs.{i}", params[f"conv_{i}"])
     return sd

@@ -1,15 +1,22 @@
 """Base model: device choice and checkpoint IO (counterpart of
-``glare_tpu/models/base_model.py``, inference half).
+``glare_tpu/models/base_model.py``).
 
-Network weights are torch ``state_dict`` files under the reference names
-(``{iter}_G.pth``); training state comes with the training slices.
+Artifacts mirror the reference's two-file split:
+  * ``{iter}_G.pth`` -- the network's ``state_dict`` under the reference names,
+    which ``load_network`` and the inference CLIs load;
+  * ``{iter}.state`` -- the training state ``{epoch, iter, state}`` (``state``:
+    the trainable ``state_dict`` and the optimizer's ``state_dict``), only the
+    2 newest kept (reference: base_model.py:188-219).
 """
 
 from __future__ import annotations
 
+import glob
 import os
 
 import torch
+
+from ..utils.util import natsorted
 
 
 def resolve_device(device) -> torch.device:
@@ -27,6 +34,7 @@ class BaseModel:
         self.opt = opt
         self.device = resolve_device(device)
         self.is_train = opt.get("is_train", False)
+        self.log_dict = {}
 
     @staticmethod
     def _torchify(path):
@@ -52,3 +60,30 @@ class BaseModel:
         sd = {k: v.to(own[k].dtype) if k in own else v for k, v in sd.items()}
         return network.load_state_dict(sd, strict=strict)
 
+    # ---------------- training checkpoints ----------------
+
+    def save_network(self, network, network_label, iter_label):
+        """``{iter}_{label}.pth`` under ``path.models``: the float32 ``state_dict``."""
+        d = self.opt["path"]["models"]
+        os.makedirs(d, exist_ok=True)
+        fn = os.path.join(d, f"{iter_label}_{network_label}.pth")
+        torch.save({k: v.detach().float().cpu() if v.is_floating_point() else v.cpu()
+                    for k, v in network.state_dict().items()}, fn)
+        return fn
+
+    def save_training_state(self, epoch, iter_step, state):
+        """``{iter}.state`` under ``path.training_state``; keeps the 2 newest."""
+        d = self.opt["path"]["training_state"]
+        os.makedirs(d, exist_ok=True)
+        fn = os.path.join(d, f"{iter_step}.state")
+        torch.save({"epoch": epoch, "iter": iter_step, "state": state}, fn)
+        for old in natsorted(glob.glob(os.path.join(d, "*.state")))[:-2]:
+            os.remove(old)
+        return fn
+
+    @staticmethod
+    def load_training_state(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    def get_current_log(self):
+        return self.log_dict

@@ -34,7 +34,9 @@ def define_Flow(opt, step=0):
         # inference defaults to the exact unbounded op ('xla'); 'pallas' clamps at
         # network_G.dcn_max_offset; 'hybrid' is the cascade (clamp + wide-radius tail
         # on up to dcn_hybrid_capacity of the row blocks, exact for offsets up to
-        # dcn_hybrid_tail_offset). Training (default 'chain') is not ported yet.
+        # dcn_hybrid_tail_offset). Training defaults to 'chain': the clamped op at one
+        # radius, which on the card runs the DCN autograd Function (the forward
+        # kernel and csrc/dcn_bwd.cu).
         dcn_impl = opt_get(opt, ["network_G", "dcn_impl"], None) or (
             "chain" if opt.get("is_train") else "xla")
         dcn_r = opt_get(opt, ["network_G", "dcn_max_offset"], 2) or 2

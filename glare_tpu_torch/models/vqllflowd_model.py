@@ -1,5 +1,4 @@
-"""Stage-3 model wrapper, inference half (counterpart of
-``glare_tpu/models/vqllflowd_model.py``).
+"""Stage-3 model wrapper (counterpart of ``glare_tpu/models/vqllflowd_model.py``).
 
 ``get_sr(lq)`` is the serving path: three steps in a row,
 
@@ -13,7 +12,15 @@ convolutions run in bf16 when ``inference_dtype: bfloat16``.
 offsets on a batch and pick, per warp, the cheapest configuration that is exact
 for it: the same stats and the same choices as the JAX model makes on a TPU.
 
-Not ported yet: the train step.
+Training (``is_train``): ``optimize_parameters`` is the reference's step,
+    rec = AFT(no_grad(flow^-1(color map)), no_grad(vq.decode(...)), no_grad(mid_feat))
+    sr = clamp(rec, 0, 1) with NaN masking
+    loss = l1 + 0.01 * VGG16 perceptual + 0.2 * (1 - msssim(sr, gt, normalize=True)),
+with ``RRDB`` and ``flowUpsamplerNet`` frozen (``requires_grad`` False, out of
+the optimizer) and Adam (beta1, beta2, eps 1e-8; decoupled weight decay when
+``weight_decay_G`` > 0, as the JAX optax chain) at ``schedule(k)`` on its k-th
+update. The network is float32 (``train.mixed_precision`` is not ported yet). On
+the card the DCNs run the forward kernel and ``csrc/dcn_bwd.cu`` under autograd.
 """
 
 from __future__ import annotations
@@ -24,12 +31,17 @@ import os
 import numpy as np
 import torch
 
+from ..modules.losses import PerceptualNetwork
+from ..modules.msssim import msssim
 from ..modules.vqllflow_deformable import VQLLFLOWDeformable
 from ..nn.layers import cast_convs_, seed_init_
 from ..ops.dcn import cascade_rows_per_block
 from ..utils.util import opt_get
 from .base_model import BaseModel
+from .lr_scheduler import build_schedule
 from .networks import define_Flow, find_vqgan
+
+FROZEN = ("RRDB", "flowUpsamplerNet")  # the stage-3 generator's frozen sub-networks
 
 
 def temper_offset_heads(netG, seed=0, std=0.02):
@@ -48,13 +60,13 @@ def temper_offset_heads(netG, seed=0, std=0.02):
 class VQLLFLOWDModel(BaseModel):
     def __init__(self, opt, step=0, device="cuda"):
         super().__init__(opt, device=device)
-        if self.is_train:
+        if self.is_train and opt_get(opt, ["train", "mixed_precision"]):
             raise NotImplementedError(
-                "stage-3 training is not ported yet (it needs the DCN backward kernel); "
-                "build the model with is_train=False")
+                "train.mixed_precision (bf16 compute, float32 master weights) is not ported "
+                "yet: it needs the DCN backward in bf16 (queued in ROADMAP.md)")
         self.heats = opt_get(opt, ["val", "heats"])
-        self.dtype = (torch.bfloat16 if opt.get("inference_dtype") == "bfloat16"
-                      else torch.float32)
+        bf16 = not self.is_train and opt.get("inference_dtype") == "bfloat16"
+        self.dtype = torch.bfloat16 if bf16 else torch.float32
         self.netG = define_Flow(opt, step)
         assert isinstance(self.netG, VQLLFLOWDeformable)
         self.net_hq = find_vqgan(opt)
@@ -72,15 +84,37 @@ class VQLLFLOWDModel(BaseModel):
         if g_path and os.path.exists(self._torchify(g_path)):
             self.load_into(self.netG, self._torchify(g_path), strict=False)
         self._finalize()
+        if self.is_train:
+            self._build_optimizer(opt.get("train") or {})
+            self.perceptual = PerceptualNetwork().to(self.device)
+            if not self.perceptual.pretrained:
+                import logging
+
+                logging.getLogger("base").warning(
+                    "stage-3 training: perceptual loss is using a fixed-seed RANDOM VGG16 (no "
+                    "GLARE_VGG16_NPZ and no cached vgg16-*.pth) -- NOT the reference objective. "
+                    "Convert weights with tools/torch2flax.py --kind vgg16 to restore parity.")
 
     def _finalize(self):
-        """Move to the device, set eval mode, channels_last and the compute dtype."""
+        """Move to the device, set eval mode, channels_last and the compute dtype;
+        when training, label the trainable parameters (:meth:`_label_trainable`)."""
         for net in (self.netG, self.net_hq):
             net.to(self.device).eval().requires_grad_(False)
             net.to(memory_format=torch.channels_last)
         self.netG.set_compute_dtype(self.dtype)  # the flow stays float32
         cast_convs_(self.net_hq, self.dtype)
         self._dcn_overflow_raw = None
+        if self.is_train:
+            self._label_trainable()
+
+    def _label_trainable(self):
+        """``RRDB`` and ``flowUpsamplerNet`` frozen, the rest of netG trainable
+        (the JAX package's ``_label_trainable``); the VQGAN stays frozen."""
+        for name, p in self.netG.named_parameters():
+            p.requires_grad_(name.split(".", 1)[0] not in FROZEN)
+
+    def trainable_parameters(self):
+        return [(n, p) for n, p in self.netG.named_parameters() if p.requires_grad]
 
     def load_network(self, load_path, strict=True):
         """Load a stage-3 ``state_dict`` file into netG (weights are cast to the
@@ -99,6 +133,82 @@ class VQLLFLOWDModel(BaseModel):
         if vqgan_sd is not None:
             self.net_hq.load_state_dict(vqgan_sd, strict=True)
         self._finalize()
+
+    # ---------------- train ----------------
+
+    def _build_optimizer(self, train_opt):
+        """Adam over the trainable parameters, as the optax chain of the JAX model
+        (``scale_by_adam`` -> ``add_decayed_weights`` -> the schedule): AdamW's
+        decoupled decay is that chain's ``p -= lr * (adam + wd * p)``."""
+        self.schedule = build_schedule(train_opt)
+        self.optimizer = torch.optim.AdamW(
+            [p for _, p in self.trainable_parameters()], lr=self.schedule(0),
+            betas=(float(train_opt.get("beta1") or 0.9), float(train_opt.get("beta2") or 0.99)),
+            eps=1e-8, weight_decay=float(train_opt.get("weight_decay_G") or 0))
+        self.updates = 0  # updates applied: optax's count, the schedule's argument
+
+    def _pipeline(self, x_in):
+        """latent_half and the VQGAN decode without a graph (both frozen, and the
+        JAX step stops their gradient), then the AFT decoder with one."""
+        with torch.no_grad():
+            x, lr_enc = self.netG.latent_half(x_in)
+            _, _, code_out = self.net_hq.decode(x)
+        return self.netG.aft_half(x, code_out, lr_enc["mid_feat"])
+
+    def train_losses(self, lq, gt):
+        """-> (total, (l1, percep, ssim)) of the reference's stage-3 objective, with
+        the graph. lq, gt [B, H, W, 3] float32."""
+        lq = torch.as_tensor(lq, dtype=torch.float32, device=self.device)
+        gt = torch.as_tensor(gt, dtype=torch.float32, device=self.device)
+        x_in = lq.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        rec = self._pipeline(x_in).float().permute(0, 2, 3, 1)
+        self._dcn_overflow_raw = self.netG.deformable_decoder.dcn_overflow()
+        sr = torch.clamp(rec, 0.0, 1.0)
+        not_nan = ~torch.isnan(sr)
+        sr = torch.nan_to_num(sr)
+        l1 = ((sr - gt) * not_nan).abs().mean()
+        percep = self.perceptual(sr, gt) * 0.01
+        ssim_l = (1.0 - msssim(sr, gt, normalize=True)) * 0.2
+        return l1 + percep + ssim_l, (l1, percep, ssim_l)
+
+    def optimize_parameters(self, batch, step=None):
+        """One training step on ``batch`` = {"LQ", "GT"}: the loss, its gradients,
+        then the update at ``schedule(updates so far)``. -> (total, percep, l1, ssim)."""
+        self.optimizer.zero_grad(set_to_none=True)
+        total, (l1, percep, ssim_l) = self.train_losses(batch["LQ"], batch["GT"])
+        total.backward()
+        lr = self.schedule(self.updates)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.updates += 1
+        self.log_dict = {"total_loss": float(total.detach()), "l1_loss": float(l1.detach()),
+                         "percep_loss": float(percep.detach()), "ssim_loss": float(ssim_l.detach())}
+        return (self.log_dict["total_loss"], self.log_dict["percep_loss"],
+                self.log_dict["l1_loss"], self.log_dict["ssim_loss"])
+
+    # ---------------- persistence ----------------
+
+    def save(self, iter_label):
+        return self.save_network(self.netG, "G", iter_label)
+
+    def save_training(self, epoch, iter_step):
+        names = {n for n, _ in self.trainable_parameters()}
+        params = {k: v.detach().cpu() for k, v in self.netG.state_dict().items() if k in names}
+        return self.save_training_state(epoch, iter_step, {"params": params, "updates": self.updates,
+                                                           "optimizer": self.optimizer.state_dict()})
+
+    def resume_training(self, path):
+        """Restore the trainable weights and the optimizer from ``{iter}.state``
+        -> (epoch, iter)."""
+        payload = self.load_training_state(path)
+        with torch.no_grad():
+            own = dict(self.netG.named_parameters())
+            for k, v in payload["state"]["params"].items():
+                own[k].copy_(v)
+        self.optimizer.load_state_dict(payload["state"]["optimizer"])
+        self.updates = payload["state"]["updates"]
+        return payload["epoch"], payload["iter"]
 
     # ---------------- eval ----------------
 

@@ -28,9 +28,9 @@ from torch import nn
 from ..nn.layers import AttnBlock, Conv, GroupNorm32, ResnetBlock, Upsample, swish
 from ..ops import dcn as dcn_ops
 
-_LATER = ("dcn_impl '{}' is not ported yet: the chain op (the training formulation) and the "
-          "gather hybrid come in a later slice of the port; use 'xla' (exact), 'pallas' (clamped "
-          "at dcn_max_offset) or 'hybrid' (the cascade)")
+_LATER = ("dcn_impl '{}' is not ported yet: the gather hybrid comes in a later slice of the "
+          "port; use 'xla' (exact), 'pallas' (clamped at dcn_max_offset), 'chain' (clamped at its "
+          "largest radius, the training default) or 'hybrid' (the cascade)")
 
 
 class DCNv2Pack(nn.Module):
@@ -38,26 +38,34 @@ class DCNv2Pack(nn.Module):
 
     impl: ``'xla'`` = exact, unbounded offsets; ``'pallas'`` = offsets clamped
     to ``max_offset`` (an int, or a ``[G][K]`` nested tuple of per-tap radii);
+    ``'chain'`` = the training formulation: offsets clamped to one radius, the
+    largest of a per-tap table (the JAX chain op is uniform-radius too);
     ``'hybrid'`` = the cascade: clamp ``max_offset`` everywhere, and up to
     ``hybrid_capacity`` of the row blocks that hold a tap beyond it recomputed
     at clamp ``max(hybrid_tail_offset, max_offset + 1)`` (a per-tap table is
     collapsed to its largest radius). The names are the JAX package's option
     values; on the card all run the hand-written CUDA kernels of ``ops/dcn.py``.
     ``'hybrid'`` always takes the cascade (the JAX module does so on a TPU; off
-    a TPU it stands in its gather hybrid for the Mosaic kernel). ``'chain'`` and
-    ``'hybrid_gather'`` raise ``NotImplementedError``.
+    a TPU it stands in its gather hybrid for the Mosaic kernel). Under autograd on
+    the card every impl but ``'hybrid'`` runs the DCN autograd Function (the
+    forward kernel and ``csrc/dcn_bwd.cu``). ``'hybrid_gather'`` raises
+    ``NotImplementedError``.
 
     After a forward with a bounded impl, ``dcn_overflow`` holds an int64 ``[2]``
     tensor on the device (the JAX module's ``dcn_overflow`` sow): for
     ``'pallas'`` ``[0, taps beyond the clamp]`` (counted by the kernel on the
-    card), for ``'hybrid'`` ``[out-of-band blocks that did not fit the capacity,
+    card), for ``'chain'`` ``[0, taps beyond the one radius it clamps at]`` (the
+    JAX module counts at the per-tap radii of a table but clamps at their
+    maximum; the port counts where it clamps, and with an integer
+    ``max_offset``, as in every conf, the two agree), for ``'hybrid'``
+    ``[out-of-band blocks that did not fit the capacity,
     taps beyond the tail radius]`` (the cascade's selection kernel).
     Non-zero means this batch's output deviates from exact DCNv2. With
     ``audit_offsets`` the raw ``[B, H, W, G, K, 2]`` offsets of the last forward
     are kept in ``last_offsets`` (the JAX module's ``offsets`` sow).
     """
 
-    IMPLS = ("xla", "pallas", "hybrid")
+    IMPLS = ("xla", "pallas", "chain", "hybrid")
 
     def __init__(self, in_channels, features, deformable_groups=4, kernel_size=3, impl="xla",
                  max_offset: Any = 2, hybrid_capacity=0.125, hybrid_tail_offset=8,
@@ -85,8 +93,9 @@ class DCNv2Pack(nn.Module):
         self.hybrid_capacity = float(hybrid_capacity)
         self.hybrid_tail_offset = int(hybrid_tail_offset)
         weight = self._parameters.get("weight")
-        self.clamp_radii = dcn_ops.clamp_table(max_offset if impl == "pallas" else None, self.G,
-                                               self.K).to("cpu" if weight is None else weight.device)
+        radii = {"pallas": max_offset, "chain": _largest(max_offset)}.get(impl)
+        self.clamp_radii = dcn_ops.clamp_table(radii, self.G, self.K).to(
+            "cpu" if weight is None else weight.device)
 
     def seeded_reset(self, generator):
         bound = 1.0 / math.sqrt(self.weight.shape[1] * self.K)
@@ -112,9 +121,7 @@ class DCNv2Pack(nn.Module):
         self.last_shapes = {"x": list(x_nhwc.shape), "offset": list(offset.shape),
                             "mask": list(mask.shape), "dtype": str(x.dtype).split(".")[-1]}
         if self.impl == "hybrid":
-            mo = self.max_offset
-            if isinstance(mo, (tuple, list)):  # the cascade is uniform-radius
-                mo = max(max(row) for row in mo)
+            mo = _largest(self.max_offset)  # the cascade is uniform-radius
             out, self.dcn_overflow = dcn_ops.modulated_deform_conv_cascade(
                 x_nhwc, offset, mask, weight, self.bias, max_offset=int(mo),
                 tail_offset=max(self.hybrid_tail_offset, int(mo) + 1),
@@ -124,12 +131,19 @@ class DCNv2Pack(nn.Module):
             self.clamp_radii = self.clamp_radii.to(x.device)
         out = dcn_ops.modulated_deform_conv(x_nhwc, offset, mask, weight, self.bias,
                                             max_offset=self.clamp_radii,
-                                            return_overflow=self.impl == "pallas")
-        if self.impl == "pallas":
+                                            return_overflow=self.impl != "xla")
+        if self.impl != "xla":
             out, self.dcn_overflow = out
         else:
             self.dcn_overflow = None
         return out.permute(0, 3, 1, 2)
+
+
+def _largest(max_offset):
+    """A ``[G][K]`` table of radii -> its largest radius (an int stays as it is)."""
+    if isinstance(max_offset, (tuple, list)):
+        return max(max(row) for row in max_offset)
+    return max_offset
 
 
 class WarpBlock(nn.Module):

@@ -15,7 +15,8 @@ default distribution).
 
 Compute dtype: :func:`cast_convs_` casts the convolutions of a sub-network to
 bf16 and every :class:`Conv` casts its input to its weight's dtype, which is
-what ``dtype=jnp.bfloat16`` does in the JAX package. Norm statistics stay f32.
+what ``dtype=jnp.bfloat16`` does in the JAX package. Norm statistics stay f32
+(``GLARE_GN_BF16=1`` keeps a bf16 norm's result in bf16, as in JAX).
 """
 
 from __future__ import annotations
@@ -60,12 +61,26 @@ class Conv(nn.Conv2d):
 
 
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm(32, eps=1e-6, affine) computed in float32, result in x's dtype."""
+    """GroupNorm(32, eps=1e-6, affine) computed in float32, result in x's dtype.
+
+    ``GLARE_GN_BF16=1`` (read at construction, as the JAX module reads it) on a
+    bf16 input follows flax's ``GroupNorm(dtype=bfloat16)``: statistics in
+    float32 (mean, and E[x^2] - mean^2 clamped at 0), then ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias`` in float32 and a bf16 result."""
 
     def __init__(self, num_channels, num_groups=32, eps=1e-6):
         super().__init__(num_groups, num_channels, eps=eps, affine=True)
+        self.bf16_io = os.environ.get("GLARE_GN_BF16", "0") == "1"
 
     def forward(self, x):
+        if self.bf16_io and x.dtype == torch.bfloat16:
+            b, c, g = x.shape[0], x.shape[1], self.num_groups
+            xg = x.float().reshape(b, g, c // g, -1)
+            mean = xg.mean(dim=(2, 3), keepdim=True)
+            var = torch.clamp((xg * xg).mean(dim=(2, 3), keepdim=True) - mean * mean, min=0.0)
+            mul = torch.rsqrt(var + self.eps) * self.weight.float().reshape(1, g, c // g, 1)
+            y = (xg - mean) * mul + self.bias.float().reshape(1, g, c // g, 1)
+            return y.reshape(x.shape).to(torch.bfloat16)
         y = F.group_norm(x.float(), self.num_groups, self.weight.float(), self.bias.float(),
                          self.eps)
         return y.to(x.dtype)

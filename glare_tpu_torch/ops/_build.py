@@ -115,6 +115,32 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def on_card(t) -> bool:
+    """Whether a wrapper launches its kernel for tensor ``t`` (else it takes the
+    plain version): ``t`` lies on a CUDA device. One predicate for every
+    wrapper, so that the CPU tests can stub it to reach the launch-side rules."""
+    return t.is_cuda
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would differentiate through these inputs (None ignored)."""
+    import torch
+
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(op: str, *tensors) -> None:
+    """The launch-side autograd rule of a kernel without a backward: with grad
+    enabled, an input that requires grad would get an output filled through
+    ``ctypes``, cut from the graph without an error. Raise instead, naming the
+    op. (The DCN forward has a backward: ``ops.dcn.ModulatedDeformConvFunction``.)"""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{op}: an input requires grad, but this CUDA kernel has no backward and its "
+            "output would carry none; call it under torch.no_grad() / inference_mode(), "
+            "or detach the inputs")
+
+
 def check(err: int, what: str) -> None:
     """Raise if a kernel's C entry returned a CUDA error code."""
     if err != 0:

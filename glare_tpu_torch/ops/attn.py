@@ -17,6 +17,9 @@ is ``[B, N, C]`` in q's dtype.
     ``f32`` (``csrc/attn_fused.cu``: float32).
   * :func:`flash_attention_nhc` -- dispatch by where the tensors lie: CUDA
     tensors launch a kernel (or raise), CPU tensors take the plain version.
+    The kernels have no backward: with grad enabled, an input that requires
+    grad makes the CUDA wrapper raise (``_build.refuse_grad``). Training never
+    reaches them (at the training crop every block is dense, ``nn/layers.py``).
 
 What bounds the kernels on an H100: tensor-core operations, ``4*B*N*N*C``
 FLOP; the design notes are in the CUDA sources.
@@ -106,6 +109,7 @@ def flash_attention_nhc_cuda(q, k, v, n_true: Optional[int] = None, entry: Optio
     one that takes these inputs (the earlier ``wmma`` kernel at C = 512, to time
     the two side by side)."""
     global launches
+    _build.refuse_grad("flash_attention_nhc_cuda", q, k, v)
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention_nhc_cuda needs CUDA tensors")
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
@@ -151,6 +155,6 @@ def flash_attention_nhc(q, k, v, *, n_true: Optional[int] = None, pipeline: bool
     of the same function); the same CUDA kernel serves both.
     """
     del pipeline
-    if q.is_cuda:
+    if _build.on_card(q):
         return flash_attention_nhc_cuda(q, k, v, n_true=n_true)
     return flash_attention_nhc_ref(q, k, v, n_true=n_true)

@@ -28,6 +28,23 @@ zero. The contraction uses the weight flattened as ``[K, G, Cg, O] -> [9*C, O]``
     beyond their clamp radius (the ``pallas`` overflow counter).
   * :func:`modulated_deform_conv` -- dispatch by where the tensors lie: CUDA
     tensors launch a kernel (or raise), CPU tensors take the plain version.
+    With grad enabled and an input that requires grad, a CUDA call goes
+    through :class:`ModulatedDeformConvFunction` (float32 only).
+
+The backward (no Pallas counterpart: JAX takes it from XLA autodiff of its
+``modulated_deform_conv_chain`` / ``modulated_deform_conv``):
+
+  * :func:`modulated_deform_conv_backward_ref` -- plain version: autograd of
+    :func:`modulated_deform_conv_ref`. It is the reference CUDA extension's
+    derivative (``col2im_coord``, floor-based at integer offsets), which the
+    chain op's autodiff is not at exactly integer offsets.
+  * :func:`modulated_deform_conv_backward_cuda` -- ``csrc/dcn_bwd.cu``: per
+    chunk of images the masked column (``dcn_bwd_im2col``), grad_weight =
+    col^T grad_out and grad_col = grad_out W^T as two float32 products, then
+    grad_offset / grad_mask (``dcn_bwd_coord``) and, when x needs it, grad_x
+    by an atomic scatter (``dcn_bwd_input``). grad_bias = sum grad_out.
+  * :class:`ModulatedDeformConvFunction` -- the forward kernel (entry ``f32``)
+    with that backward; the training path's DCN on the card.
 
 The cascade (counterpart of ``modulated_deform_conv_pallas_cascade``; used by
 ``dcn_impl: hybrid``): a base result with every offset clamped to +-R, and the
@@ -74,6 +91,10 @@ cascade_launches = 0  # +1 per launch of a cascade entry (any of the three), now
 launches_by_entry = {"hopper": 0, "wmma": 0, "f32": 0}          # +1 per launch of that entry
 cascade_launches_by_entry = {"hopper": 0, "wmma": 0, "f32": 0}  # the same, cascade entries
 select_launches = 0   # +1 per launch of dcn_cascade_select, nowhere else
+bwd_launches = 0      # +1 per launch of dcn_bwd_coord (once per chunk of a backward), nowhere else
+bwd_launches_by_entry = {"im2col": 0, "coord": 0, "input": 0}  # +1 per launch of that kernel
+
+BWD_CHUNK_BYTES = 1 << 30  # the backward's column and grad_col: at most ~1 GB per chunk of images
 
 HOPPER_O = (128, 256)  # the output widths the Hopper entry serves
 _CB = 64               # its K chunk: 64 channels of one tap
@@ -277,6 +298,7 @@ def modulated_deform_conv_cuda(x, offset, mask, weight, bias=None, max_offset=No
     side). ``return_overflow``: the Hopper entry counts in the kernel; the
     others leave it to :func:`clamp_overflow`."""
     global launches
+    _build.refuse_grad("modulated_deform_conv_cuda", x, offset, mask, weight, bias)
     entry = route(x, offset, weight) if entry is None else entry
     radii = clamp_table(max_offset, offset.shape[3]).to(x.device, torch.float32).contiguous()
     count = None
@@ -293,10 +315,135 @@ def modulated_deform_conv_cuda(x, offset, mask, weight, bias=None, max_offset=No
 
 def modulated_deform_conv(x, offset, mask, weight, bias=None, max_offset=None,
                           return_overflow=False):
-    """DCNv2 forward: a kernel for CUDA tensors, the plain version on the CPU."""
-    if x.is_cuda:
+    """DCNv2 forward: a kernel for CUDA tensors, the plain version on the CPU.
+    A CUDA call that autograd must differentiate goes through
+    :class:`ModulatedDeformConvFunction`."""
+    if not _build.on_card(x):
+        return modulated_deform_conv_ref(x, offset, mask, weight, bias, max_offset, return_overflow)
+    if not _build.needs_grad(x, offset, mask, weight, bias):
         return modulated_deform_conv_cuda(x, offset, mask, weight, bias, max_offset, return_overflow)
-    return modulated_deform_conv_ref(x, offset, mask, weight, bias, max_offset, return_overflow)
+    radii = clamp_table(max_offset, offset.shape[3]).to(x.device, torch.float32).contiguous()
+    out = ModulatedDeformConvFunction.apply(x, offset, mask, weight, bias, radii)
+    return (out, clamp_overflow(offset.detach(), radii)) if return_overflow else out
+
+
+# ------------------------------------------------------------- the backward --
+
+def _dcn_grad_dtype(x):
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"the DCN backward kernel takes float32 only, got {x.dtype}: bf16 training "
+            "(train.mixed_precision) is queued in ROADMAP.md with the bf16 backward")
+
+
+def modulated_deform_conv_backward_ref(grad_out, x, offset, mask, weight, bias=None,
+                                       max_offset=None, need_x=True):
+    """Plain version of the backward: autograd of :func:`modulated_deform_conv_ref`.
+    -> (grad_x or None, grad_offset, grad_mask, grad_weight [3, 3, C, O], grad_bias [O])."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, offset, mask, weight)]
+        b = None if bias is None else bias.detach().requires_grad_(True)
+        out = modulated_deform_conv_ref(*leaves, b, max_offset=max_offset)
+        wrt = leaves + ([b] if b is not None else [])
+        grads = torch.autograd.grad(out, wrt, grad_out)
+    gb = grads[4] if b is not None else grad_out.float().sum(dim=(0, 1, 2))
+    return (grads[0] if need_x else None, grads[1], grads[2], grads[3], gb)
+
+
+_bwd_lib = None
+
+
+def _bwd_kernels():
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.load("dcn_bwd")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dcn_bwd_im2col.argtypes = [p] * 5 + [i] * 5 + [p]
+        lib.dcn_bwd_coord.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.dcn_bwd_input.argtypes = [p] * 5 + [i] * 5 + [p]
+        for fn in (lib.dcn_bwd_im2col, lib.dcn_bwd_coord, lib.dcn_bwd_input):
+            fn.restype = ctypes.c_int
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def modulated_deform_conv_backward_cuda(grad_out, x, offset, mask, weight, max_offset=None,
+                                        need_x=False):
+    """The DCN backward by ``csrc/dcn_bwd.cu`` (float32). ``max_offset`` as in the
+    forward (a [G, 9] table on the device is taken as it is). Images go in
+    chunks whose column is at most ``BWD_CHUNK_BYTES``. The two products run
+    in full float32 (the package keeps TF32 off). -> (grad_x or None,
+    grad_offset, grad_mask, grad_weight [3, 3, C, O], grad_bias [O])."""
+    global bwd_launches
+    B, H, W, C, O, G = _check(x, offset, mask, weight)
+    _dcn_grad_dtype(x)
+    if tuple(grad_out.shape) != (B, H, W, O):
+        raise ValueError(f"grad_out must be {(B, H, W, O)}, got {tuple(grad_out.shape)}")
+    if not all(t.is_cuda for t in (grad_out, x, offset, mask, weight)):
+        raise ValueError("modulated_deform_conv_backward_cuda needs CUDA tensors")
+    _dcn_grad_dtype(grad_out)
+    x = _aligned(x.contiguous(), 16)
+    offset = offset.float().contiguous()
+    mask = mask.float().contiguous()
+    w2 = weight.reshape(9 * C, O).float().contiguous()
+    go = grad_out.contiguous().reshape(B * H * W, O)
+    radii = clamp_table(max_offset, G).to(x.device, torch.float32).contiguous()
+    grad_offset = torch.empty_like(offset)
+    grad_mask = torch.empty_like(mask)
+    grad_x = torch.zeros_like(x) if need_x else None
+    grad_w2 = torch.zeros((9 * C, O), dtype=torch.float32, device=x.device)
+    lib = _bwd_kernels()
+    per = max(1, BWD_CHUNK_BYTES // max(1, H * W * 9 * C * 4))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for b0 in range(0, B, per):
+            nb, rows = min(per, B - b0), slice(b0 * H * W, min(B, b0 + per) * H * W)
+            xs, offs, ms = x[b0:b0 + nb], offset[b0:b0 + nb], mask[b0:b0 + nb]
+            col = torch.empty((nb * H * W, 9 * C), dtype=torch.float32, device=x.device)
+            _build.check(lib.dcn_bwd_im2col(xs.data_ptr(), offs.data_ptr(), ms.data_ptr(),
+                                            radii.data_ptr(), col.data_ptr(), nb, H, W, C, G,
+                                            stream), "dcn_bwd_im2col")
+            bwd_launches_by_entry["im2col"] += 1
+            grad_w2.addmm_(col.t(), go[rows])
+            del col
+            gcol = go[rows] @ w2.t()
+            _build.check(lib.dcn_bwd_coord(xs.data_ptr(), offs.data_ptr(), ms.data_ptr(),
+                                           radii.data_ptr(), gcol.data_ptr(),
+                                           grad_offset[b0:b0 + nb].data_ptr(),
+                                           grad_mask[b0:b0 + nb].data_ptr(), nb, H, W, C, G,
+                                           stream), "dcn_bwd_coord")
+            bwd_launches += 1
+            bwd_launches_by_entry["coord"] += 1
+            if need_x:
+                _build.check(lib.dcn_bwd_input(offs.data_ptr(), ms.data_ptr(), radii.data_ptr(),
+                                               gcol.data_ptr(), grad_x[b0:b0 + nb].data_ptr(),
+                                               nb, H, W, C, G, stream), "dcn_bwd_input")
+                bwd_launches_by_entry["input"] += 1
+            del gcol
+    return grad_x, grad_offset, grad_mask, grad_w2.reshape(3, 3, C, O), go.sum(dim=0)
+
+
+class ModulatedDeformConvFunction(torch.autograd.Function):
+    """DCNv2 on the card under autograd: the forward kernel (float32 entry of
+    ``csrc/dcn_fwd.cu``) and the backward of ``csrc/dcn_bwd.cu``. ``radii``: the
+    [G, 9] float32 clamp table on the device. grad_x is computed only when x
+    requires grad."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, bias, radii):
+        _dcn_grad_dtype(x)
+        out = modulated_deform_conv_cuda(x, offset, mask, weight, bias, max_offset=radii)
+        ctx.save_for_backward(x, offset, mask, weight, radii)
+        ctx.has_bias = bias is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, offset, mask, weight, radii = ctx.saved_tensors
+        gx, goff, gm, gw, gb = modulated_deform_conv_backward_cuda(
+            grad_out, x, offset, mask, weight, max_offset=radii, need_x=ctx.needs_input_grad[0])
+        return (gx, goff.to(offset.dtype), gm.to(mask.dtype), gw.to(weight.dtype),
+                gb if ctx.has_bias else None, None)
 
 
 # ------------------------------------------------------------- the cascade --
@@ -401,6 +548,8 @@ def modulated_deform_conv_cascade_cuda(x, offset, mask, weight, bias=None, max_o
     """The selection kernel, then one pass of the entry :func:`route` picks
     (``entry`` names another one that takes these inputs)."""
     global cascade_launches
+    _build.refuse_grad("modulated_deform_conv_cascade_cuda (not a training op)",
+                       x, offset, mask, weight, bias)
     entry = route(x, offset, weight) if entry is None else entry
     _check_entry(entry, x, offset, mask, weight)
     if not x.is_cuda:
@@ -417,6 +566,6 @@ def modulated_deform_conv_cascade(x, offset, mask, weight, bias=None, max_offset
                                   tail_offset=8, capacity_frac=0.125, rows_per_step=16,
                                   return_overflow=False):
     """The DCN cascade: the kernels for CUDA tensors, the plain version on the CPU."""
-    fn = modulated_deform_conv_cascade_cuda if x.is_cuda else modulated_deform_conv_cascade_ref
+    fn = modulated_deform_conv_cascade_cuda if _build.on_card(x) else modulated_deform_conv_cascade_ref
     return fn(x, offset, mask, weight, bias, max_offset, tail_offset, capacity_frac,
               rows_per_step, return_overflow)

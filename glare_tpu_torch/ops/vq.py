@@ -112,6 +112,9 @@ def nearest_code_cuda(z_flat: torch.Tensor, codebook: torch.Tensor) -> torch.Ten
 
 def nearest_code(z_flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Kernel for a CUDA tensor, plain version for a CPU tensor."""
-    if z_flat.is_cuda:
+    # No autograd rule here, in either package: the result is integer indices,
+    # through which no gradient flows; the straight-through estimator is
+    # modules/quantize.py's business.
+    if _build.on_card(z_flat):
         return nearest_code_cuda(z_flat, codebook)
     return nearest_code_ref(z_flat, codebook)

@@ -1,11 +1,12 @@
-"""YAML config system (the port's own copy of what inference needs from
-``glare_tpu/options/options.py``).
+"""YAML config system (the port's own copy of what inference and training need
+from ``glare_tpu/options/options.py``).
 
   * ``parse(opt_path, is_train)`` -> nested dict; injects ``is_train``,
     per-phase ``phase``, ``scale``, ``data_type``; synthesizes the results path
     tree; expands relative LR milestones.
   * ``dict_to_nonedict`` wraps every nested dict in :class:`NoneDict`, whose
     missing keys read as ``None`` so feature flags can be probed by indexing.
+  * ``dict2str`` renders an option tree for the training log.
 
 ``yaml`` is imported inside :func:`parse`, not at package import.
 """
@@ -99,3 +100,15 @@ def parse(opt_path, is_train=True):
             if train.get(rel) is not None:
                 train[absolute] = [int(x * niter) for x in train[rel]]
     return opt
+
+
+def dict2str(opt, indent_l=1):
+    msg = ""
+    for k, v in opt.items():
+        if isinstance(v, dict):
+            msg += " " * (indent_l * 2) + k + ":[\n"
+            msg += dict2str(v, indent_l + 1)
+            msg += " " * (indent_l * 2) + "]\n"
+        else:
+            msg += " " * (indent_l * 2) + k + ": " + str(v) + "\n"
+    return msg

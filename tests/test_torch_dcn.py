@@ -137,6 +137,11 @@ def test_unported_impls_raise(impl):
     if impl == "hybrid":  # the cascade is ported (tests/test_torch_dcn_cascade.py)
         assert DCNv2Pack(8, 8, impl=impl).impl == "hybrid"
         return
+    if impl == "chain":  # ported: one clamp radius, the largest of a per-tap table
+        per_tap = tuple(tuple(1 + (g + k) % 3 for k in range(9)) for g in range(4))
+        pack = DCNv2Pack(8, 8, impl=impl, max_offset=per_tap)
+        assert pack.impl == "chain" and bool((pack.clamp_radii == 3.0).all())
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         DCNv2Pack(8, 8, impl=impl)
     pack = DCNv2Pack(8, 8, impl="xla")

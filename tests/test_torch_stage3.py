@@ -124,15 +124,18 @@ def test_entry_points_need_an_explicit_cpu():
 
 
 def test_unported_parts_raise_with_a_pointer():
-    for dcn_impl in ("chain", "hybrid_gather"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            create_model(_opt(dcn_impl), device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        create_model(_opt("hybrid_gather"), device="cpu")
     opt = _opt("xla")
     opt["is_train"] = True
+    opt["train"] = {"manual_seed": 1, "lr_G": 5e-5, "mixed_precision": True}
     with pytest.raises(NotImplementedError, match="not ported yet"):
         create_model(opt, device="cpu")
-    # ported since: the cascade and the stage-2 model build
+    # ported since: the cascade, the chain op, stage-3 training and the stage-2 model build
     assert create_model(_opt("hybrid"), device="cpu").netG.dcn_impl == "hybrid"
+    assert create_model(_opt("chain"), device="cpu").netG.dcn_impl == "chain"
+    del opt["train"]["mixed_precision"]
+    assert hasattr(create_model(opt, device="cpu"), "optimizer")
     stage2 = {**_opt("xla"), "model": "LLFlow"}
     stage2["network_G"] = {**stage2["network_G"], "which_model_G": "LLFlowVQGAN2"}
     assert type(create_model(stage2, device="cpu")).__name__ == "LLFlowModel"
