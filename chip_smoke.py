@@ -7,16 +7,17 @@ Phases, each printing one JSON line:
   device     the card (nvidia-smi name + power limit), torch / CUDA versions
   build      compiles the six csrc/*.cu with nvcc (one process per source, all
              started together) and loads them; ptxas registers and spills of
-             vq_argmin.cu and of the two Hopper sources (attn_hopper.cu,
-             dcn_hopper.cu), with their shared memory: a spill, or warning C7515
-             (a serialized wgmma pipeline), fails the run
+             vq_argmin.cu, attn_fused.cu, dcn_bwd.cu and of the two Hopper
+             sources (attn_hopper.cu, dcn_hopper.cu), with their shared memory: a
+             spill, or warning C7515 (a serialized wgmma pipeline), fails the run
   kernels    every hand-written kernel entry against its plain PyTorch version on
              the card, at the shapes the main path gives it and at small ragged
              shapes; times by CUDA events (median after a warm-up). Attention:
              the entry the wrapper picks for each case (hopper for bf16 C = 512,
              wmma for other bf16 widths, f32), the wmma and f32 entries also
-             timed at the main shape, and SDPA under each backend as the
-             yardstick. DCN: the entry ops.dcn.route picks (hopper for the
+             timed at the main shape (f32 also at two ragged shapes: n and
+             n_true not multiples of its 64-query tile, and C % 4 != 0), and
+             SDPA under each backend as the yardstick. DCN: the entry ops.dcn.route picks (hopper for the
              paths' bf16 widths, the first kernel's wmma / f32 otherwise), the
              Hopper entry's edges (ragged tiles, B = 2, borders, corners outside
              the halo, mask 0 / 1), the first kernel timed at the paths' shapes;
@@ -24,7 +25,10 @@ Phases, each printing one JSON line:
              plain selection exactly. The DCN backward (csrc/dcn_bwd.cu) against
              autograd of the plain version at the two training shapes (offsets
              beyond the clamp, exactly 0, and grad_x), and the float32 forward
-             entry there
+             entry there; its bf16 entries there by the stage-ratio rule against
+             the float32 plain backward (chunked, with grad_x), their column bit
+             for bit against the Hopper forward's A block, and the Hopper
+             forward at the training shapes
   main_path  stage-3 paired inference at the full width of confs/LOL.yml
              (bf16, 620x420, dcn_impl pallas / clamp 2, seeded random weights):
              two single-image requests and one batch of two through
@@ -44,6 +48,11 @@ Phases, each printing one JSON line:
              VQLLFLOWDModel.optimize_parameters, each through the f32 DCN forward,
              dcn_bwd and vq_argmin and no plain version; frozen modules bit-equal;
              one step's loss and gradients against the plain versions' autograd
+  train_path_bf16  the same with train.mixed_precision (bf16 compute, float32
+             master weights and Adam moments): each step through the Hopper DCN
+             forward, the bf16 DCN backward and vq_argmin; one step through the
+             kernels and through the plain versions, both held to a float32
+             plain step on the same weights and batch by the stage-ratio rule
 Every path is driven with the launch counts (attention and DCN: one per entry,
 see counters()) set to 0 just before and read just after; every attention launch
 of an inference path must land on the hopper entry, every DCN launch on the
@@ -164,6 +173,7 @@ def phase_build():
         regs[name] = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln][:16]
     reports = {"vq_argmin": {"layout": vq_ops.layout(8192, 3)},
                "attn_hopper": {"smem_bytes": attn_ops.hopper_smem_bytes()},
+               "attn_fused": {}, "dcn_bwd": {},
                "dcn_hopper": {"smem_bytes": {O: dcn_ops.hopper_smem_bytes(O) for O in (128, 256)}}}
     for name, rep in reports.items():
         log = _build.build_log.get(name)
@@ -371,6 +381,7 @@ def check_attn():
     probabilities and output: 2^-7 of the largest output (one to two bf16 ulps);
     4x that against a float64 dense oracle on 64 queries. float32: 5e-5 (exp2f
     vs torch.exp2 and the order of sums)."""
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on: the float32 plain version would not be")
     rng = np.random.default_rng(1)
     cases = {}
 
@@ -412,6 +423,8 @@ def check_attn():
             (1, 130, 512, 97, torch.bfloat16, None),
             (2, 333, 96, 301, torch.float32, 5e-5),
             (2, 200, 64, 200, torch.float32, 5e-5),
+            (1, 2100, 128, 1999, torch.float32, 5e-5),    # ragged: n and n_true not multiples of 64
+            (1, 130, 510, 97, torch.float32, 5e-5),       # C % 4 != 0: the scalar edge
             (2, 333, 96, 301, torch.bfloat16, None),
             (1, 130, 128, 97, torch.bfloat16, None),
             (1, 130, 256, 97, torch.bfloat16, None)]
@@ -435,7 +448,7 @@ def check_attn():
     # the float32 entry at the main shape, for its error and time
     q, k, v = [dev(rng.standard_normal((1, N_PAD, 512)).astype(np.float32)) for _ in range(3)]
     _, w32, _ = compare("float32[1,16384,512] n_true=16275", q, k, v, N_TOK, None, 5e-5)
-    f32_ms = time_ms(lambda: attn_ops.flash_attention_nhc_cuda(q, k, v, n_true=N_TOK), reps=3, warmup=1)
+    f32_ms = time_ms(lambda: attn_ops.flash_attention_nhc_cuda(q, k, v, n_true=N_TOK), reps=5, warmup=1)
     f32_plain = time_ms(lambda: attn_ops.flash_attention_nhc_ref(q, k, v, n_true=N_TOK), reps=3, warmup=1)
     sdpa32 = _sdpa_by_backend(q, k, v, N_TOK, w32)
     acc32 = {name: r["ms"] for name, r in sdpa32.items() if "ms" in r}
@@ -461,8 +474,8 @@ def check_attn():
            "max_abs_err": cases["float32[1,16384,512] n_true=16275"]["max_abs_err"], "ms": f32_ms,
            "plain_ms": f32_plain, "bound_ms": f32_b_ms, "bound_by": f32_b_by,
            "library_ms": min(acc32.values()) if acc32 else None, "sdpa_by_backend": sdpa32,
-           "note": "float32 inputs at the main shape; bound by the float32 units (no tensor cores); "
-                   "the paths launch it for no call",
+           "note": "float32 inputs at the main shape; bound by the float32 units (no tensor cores, "
+                   "TF32 off); the paths launch it for no call", "achieved_tflops": flops / f32_ms / 1e9,
            "cases": {t: c for t, c in cases.items() if c.get("entry") == "f32"}}
     return hopper, wmma, f32
 
@@ -849,38 +862,52 @@ BWD_TOL = 1e-4
 BWD_OUTPUTS = ("grad_x", "grad_offset", "grad_mask", "grad_weight", "grad_bias")
 
 
-def _bwd_bound(B, H, W, C, G, O, need_x=False):
+def _bwd_bound(B, H, W, C, G, O, need_x=False, es=4, round_trips=False):
     """Least time of one backward: the two products (2 x 2*P*9*C*O FLOP) on the
-    float32 units; x, offset, mask, grad_out and the weight read once, grad_offset,
-    grad_mask, grad_weight, grad_bias (and grad_x) written once."""
+    float32 units (es 4) or the bf16 tensor cores (es 2); x and grad_out (es bytes
+    each), offset, mask and the float32 weight read once, grad_offset, grad_mask,
+    grad_weight, grad_bias (float32; and grad_x, es) written once. ``round_trips``:
+    also the column and grad_col written and read back once each (P*9*C es-byte
+    values each way), the traffic of this design."""
     P = B * H * W
-    nbytes = 4 * (P * C + 2 * P * G * 9 * 3 + P * O + 2 * 9 * C * O + O + (P * C if need_x else 0))
-    return bound(2 * 2.0 * P * 9 * C * O, PEAK_F32, nbytes)
+    nbytes = (es * (P * C + P * O + (P * C if need_x else 0))
+              + 4 * (2 * P * G * 9 * 3 + 2 * 9 * C * O + O))
+    if round_trips:
+        nbytes += 2 * 2 * P * 9 * C * es
+    return bound(2 * 2.0 * P * 9 * C * O, PEAK_F32 if es == 4 else PEAK_BF16, nbytes)
 
 
 def _bwd_parts_ms(go, x, off, mask, wgt):
-    """The backward's steps timed alone at the radius-2 table: the masked column,
-    the two products, the coordinate kernel and the scatter kernel."""
+    """The backward's steps timed alone at the radius-2 table, in x's type: the
+    masked column, the two products, the coordinate kernel and the scatter kernel."""
     B, H, W, C = x.shape
     G, O = off.shape[3], wgt.shape[-1]
     lib = dcn_ops._bwd_kernels()
+    sfx = "" if x.dtype == torch.float32 else "_bf16"
+    im2col, coord, scatter = (getattr(lib, f"dcn_bwd_{k}{sfx}") for k in ("im2col", "coord", "input"))
     radii = dcn_ops.clamp_table(2, G).to(DEV).contiguous()
-    col = torch.empty((B * H * W, 9 * C), device=DEV)
+    col = torch.empty((B * H * W, 9 * C), device=DEV, dtype=x.dtype)
     gcol = torch.empty_like(col)
-    goff, gmask, gx = torch.empty_like(off), torch.empty_like(mask), torch.zeros_like(x)
-    go2, w2 = go.reshape(-1, O), wgt.reshape(9 * C, O)
+    goff, gmask = torch.empty_like(off), torch.empty_like(mask)
+    gx = torch.zeros(x.shape, device=DEV)
+    go2, w2 = go.reshape(-1, O), wgt.reshape(9 * C, O).to(x.dtype)
     gw = torch.zeros((9 * C, O), device=DEV)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     a = (B, H, W, C, G)
+    if x.dtype == torch.float32:
+        products = lambda: (gw.addmm_(col.t(), go2), torch.matmul(go2, w2.t(), out=gcol))  # noqa: E731
+    else:
+        products = lambda: (gw.add_(torch.mm(col.t(), go2, out_dtype=torch.float32)),  # noqa: E731
+                            torch.matmul(go2, w2.t(), out=gcol))
     out = {
-        "im2col_ms": time_ms(lambda: lib.dcn_bwd_im2col(x.data_ptr(), off.data_ptr(), mask.data_ptr(),
-                                                        radii.data_ptr(), col.data_ptr(), *a, stream())),
-        "products_ms": time_ms(lambda: (gw.addmm_(col.t(), go2), torch.matmul(go2, w2.t(), out=gcol))),
-        "coord_ms": time_ms(lambda: lib.dcn_bwd_coord(x.data_ptr(), off.data_ptr(), mask.data_ptr(),
-                                                      radii.data_ptr(), gcol.data_ptr(), goff.data_ptr(),
-                                                      gmask.data_ptr(), *a, stream())),
-        "input_ms": time_ms(lambda: lib.dcn_bwd_input(off.data_ptr(), mask.data_ptr(), radii.data_ptr(),
-                                                      gcol.data_ptr(), gx.data_ptr(), *a, stream())),
+        "im2col_ms": time_ms(lambda: im2col(x.data_ptr(), off.data_ptr(), mask.data_ptr(),
+                                            radii.data_ptr(), col.data_ptr(), *a, stream())),
+        "products_ms": time_ms(products),
+        "coord_ms": time_ms(lambda: coord(x.data_ptr(), off.data_ptr(), mask.data_ptr(),
+                                          radii.data_ptr(), gcol.data_ptr(), goff.data_ptr(),
+                                          gmask.data_ptr(), *a, stream())),
+        "input_ms": time_ms(lambda: scatter(off.data_ptr(), mask.data_ptr(), radii.data_ptr(),
+                                            gcol.data_ptr(), gx.data_ptr(), *a, stream())),
     }
     del col, gcol, goff, gmask, gx, gw
     torch.cuda.empty_cache()
@@ -923,7 +950,8 @@ def check_dcn_bwd():
             require(moved_since(before) == {**{k: 0 for k in before}, "dcn_bwd": chunks},
                     f"dcn_bwd {tag}: counters {moved_since(before)}")
             moved_e = bwd_moved_since(by_entry)
-            require(moved_e == {"im2col": chunks, "coord": chunks, "input": chunks * need_x},
+            require(moved_e == {**{k: 0 for k in by_entry}, "im2col": chunks, "coord": chunks,
+                                "input": chunks * need_x},
                     f"dcn_bwd {tag}: kernel launches {moved_e}")
             want = dcn_ops.modulated_deform_conv_backward_ref(go, x, o, mask, wgt, bias, max_offset=2,
                                                               need_x=need_x)
@@ -1003,8 +1031,169 @@ def check_dcn_bwd():
     return bwd, f32
 
 
+def _column_is_forwards(x, off, mask, radii):
+    """The bf16 backward's masked column (dcn_bwd_im2col_bf16) against the Hopper
+    forward's A block, bit for bit: a one-hot weight routes O of the 9C column
+    rows to the O outputs (one product by 1 in the float32 accumulator, no bias,
+    so the output is the A value itself). -> number of differing values (0)."""
+    B, H, W, C = x.shape
+    G, O = off.shape[3], (256 if C == 256 else 128)
+    col = torch.empty((B * H * W, 9 * C), dtype=torch.bfloat16, device=DEV)
+    err = dcn_ops._bwd_kernels().dcn_bwd_im2col_bf16(
+        x.data_ptr(), off.data_ptr(), mask.data_ptr(), radii.data_ptr(), col.data_ptr(), B, H, W, C, G,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "dcn_bwd_im2col_bf16")
+    differ, eye = 0, torch.arange(O, device=DEV)
+    for r0 in range(0, 9 * C, O):
+        w = torch.zeros((9 * C, O), device=DEV)
+        w[r0 + eye, eye] = 1.0
+        y = dcn_ops.modulated_deform_conv_cuda(x, off, mask, w.reshape(3, 3, C, O), None, max_offset=radii)
+        differ += int((y.reshape(-1, O) != col[:, r0:r0 + O]).sum())
+    del col
+    return differ
+
+
+def _dcn_library_note():
+    """Why a DCN training row's library_ms is null: torch has no DCN call."""
+    return ("null: torchvision.ops.deform_conv2d (with its backward) would be the call; torch has none"
+            + ("; torchvision is installed here but not timed for the training rows" if _has_torchvision()
+               else " and torchvision is not installed on this machine"))
+
+
+def check_dcn_bwd_bf16():
+    """The bf16 entries of csrc/dcn_bwd.cu (train.mixed_precision) at the two
+    training shapes, clamp radius 2, bf16 x and grad_out, float32 offsets, mask and
+    weight: offsets of 1.5 px spread, once with grad_x (warp_0), once in two chunks
+    of one image with grad_x (warp_1). Each output three ways on the same
+    bf16-valued inputs: the kernels, the plain backward in bf16, the plain
+    backward in float32; the kernels' relative RMS distance from the float32 one
+    may be at most STAGE_RATIO x the plain bf16 one's + STAGE_ABS_SLACK (the
+    stage-ratio rule of PERF.md section 2). Exactly one launch of each bf16 entry
+    per chunk. Also the Hopper forward (entry hopper, the Function's bf16 forward)
+    at the same shapes against its plain version. -> (backward row, forward row)."""
+    rng = np.random.default_rng(7)
+    cases, timed, fwd = {}, {}, {}
+    for (wname, B, H, W, C, G, O) in TRAIN_DCN:
+        x, off, mask, wgt, bias = _dcn_inputs(rng, B, H, W, C, G, O, torch.bfloat16, 1.5)
+        go = dev(rng.standard_normal((B, H, W, O)).astype(np.float32), torch.bfloat16)
+        for field in ("spread", "grad_x" if wname == "warp_0" else "chunked"):
+            tag = f"{wname} bf16 {field}"
+            need_x = field != "spread"
+            chunks = B if field == "chunked" else 1
+            before, by_entry = counters(), dict(dcn_ops.bwd_launches_by_entry)
+            chunk_bytes = dcn_ops.BWD_CHUNK_BYTES
+            if field == "chunked":
+                dcn_ops.BWD_CHUNK_BYTES = H * W * 9 * C * 2   # one image per chunk
+            try:
+                got = dcn_ops.modulated_deform_conv_backward_cuda(go, x, off, mask, wgt, max_offset=2,
+                                                                  need_x=need_x)
+            finally:
+                dcn_ops.BWD_CHUNK_BYTES = chunk_bytes
+            torch.cuda.synchronize()
+            require(moved_since(before) == {**{k: 0 for k in before}, "dcn_bwd_bf16": chunks},
+                    f"dcn_bwd {tag}: counters {moved_since(before)}")
+            moved_e = bwd_moved_since(by_entry)
+            require(moved_e == {**{k: 0 for k in by_entry}, "im2col_bf16": chunks, "coord_bf16": chunks,
+                                "input_bf16": chunks * need_x},
+                    f"dcn_bwd {tag}: kernel launches {moved_e}")
+            plain = dcn_ops.modulated_deform_conv_backward_ref(go, x, off, mask, wgt, bias, max_offset=2,
+                                                               need_x=need_x)
+            f32 = dcn_ops.modulated_deform_conv_backward_ref(go.float(), x.float(), off, mask, wgt, bias,
+                                                             max_offset=2, need_x=need_x)
+            dists = {}
+            for name, g, p_, w in zip(BWD_OUTPUTS, got, plain, f32):
+                if w is None:
+                    require(g is None, f"dcn_bwd {tag}: {name} computed unasked")
+                    continue
+                want_dt = torch.bfloat16 if name == "grad_x" else torch.float32
+                require(g.shape == w.shape and g.dtype == want_dt and bool(torch.isfinite(g.float()).all()),
+                        f"dcn_bwd {tag}: {name} bad ({g.dtype})")
+                dk, dp = _rel_rms(g, w), _rel_rms(p_, w)
+                dists[name] = {"kernel_vs_f32": dk, "plain_bf16_vs_f32": dp,
+                               "kernel_vs_plain_max_abs": float((g.double() - p_.double()).abs().max())}
+                require(dk <= STAGE_RATIO * dp + STAGE_ABS_SLACK,
+                        f"dcn_bwd {tag}: {name} kernel {dk} from float32, plain bf16 {dp}")
+            beyond = off.abs() > 2
+            require(bool((got[1][beyond] == 0).all()), f"dcn_bwd {tag}: gradient beyond the clamp")
+            cases[tag] = {"shape": [B, H, W, C, G, O], "need_x": need_x, "chunks": chunks,
+                          "components_beyond_2px": float(beyond.float().mean()), "outputs": dists}
+            del got, plain, f32
+            torch.cuda.empty_cache()
+        ms = time_ms(lambda: dcn_ops.modulated_deform_conv_backward_cuda(go, x, off, mask, wgt, max_offset=2))
+        parts = _bwd_parts_ms(go, x, off, mask, wgt)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (x, off, mask, wgt, bias)]
+            out = dcn_ops.modulated_deform_conv_ref(*leaves, max_offset=2)
+            plain_ms = time_ms(lambda: torch.autograd.grad(out, leaves[1:], go, retain_graph=True),
+                               reps=3, warmup=1)
+            del out, leaves
+        torch.cuda.empty_cache()
+        b_ms, b_by = _bwd_bound(B, H, W, C, G, O, es=2)
+        rt_ms, rt_by = _bwd_bound(B, H, W, C, G, O, es=2, round_trips=True)
+        timed[wname] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "bound_with_round_trips_ms": rt_ms, "bound_with_round_trips_by": rt_by, **parts,
+                        "achieved_tflops": 4.0 * B * H * W * 9 * C * O / ms / 1e9}
+        # the Function's bf16 forward: the Hopper entry at the same inputs
+        require(dcn_ops.route(x, off, wgt) == "hopper", f"forward {wname}: not on the hopper entry")
+        radii = dcn_ops.clamp_table(2, G).to(DEV)
+        before = counters()
+        y, ov = dcn_ops.modulated_deform_conv_cuda(x, off, mask, wgt, bias, max_offset=radii,
+                                                   return_overflow=True)
+        torch.cuda.synchronize()
+        require(moved_since(before) == {**{k: 0 for k in before}, "dcn_hopper": 1},
+                f"forward {wname}: counters {moved_since(before)}")
+        y_ref, ov_ref = dcn_ops.modulated_deform_conv_ref(x, off, mask, wgt, bias, max_offset=2,
+                                                          return_overflow=True)
+        err = float((y.float() - y_ref.float()).abs().max())
+        tol = _dcn_tol(torch.bfloat16, y_ref)
+        require(err <= tol and ov.tolist() == ov_ref.tolist(), f"forward bf16 {wname}: {err}, {ov.tolist()}")
+        fb_ms, fb_by = _dcn_bound(B, H, W, C, G, O, 2)
+        f_ms = time_ms(lambda: dcn_ops.modulated_deform_conv_cuda(x, off, mask, wgt, bias, max_offset=radii,
+                                                                  return_overflow=True), reps=10)
+        differ = _column_is_forwards(x, off, mask, radii)
+        require(differ == 0, f"{wname}: {differ} values of the bf16 column differ from the forward's A block")
+        fwd[wname] = {"ms": f_ms, "max_abs_err": err, "tol": tol, "overflow": ov.tolist(),
+                      "column_values_off_the_forward": differ,
+                      "plain_ms": time_ms(lambda: dcn_ops.modulated_deform_conv_ref(
+                          x, off, mask, wgt, bias, max_offset=2), reps=3, warmup=1),
+                      "bound_ms": fb_ms, "bound_by": fb_by,
+                      "achieved_tflops": 2.0 * B * H * W * 9 * C * O / f_ms / 1e9}
+        del x, off, mask, wgt, bias, go, y, y_ref
+        torch.cuda.empty_cache()
+    mean = lambda t, key: sum(v[key] for v in t.values()) / len(t)  # noqa: E731
+    by = lambda t: "operations" if all(v["bound_by"] == "operations" for v in t.values()) else "bytes"  # noqa: E731
+    note = ("mean per launch over the two shapes one bf16 training step gives it (warp_0 x [2,128,128,256] "
+            "-> 256, warp_1 x [2,256,256,128] -> 128, G 4, R 2); library: torchvision is not installed (null)")
+    bwd = {"name": "dcn_bwd_bf16", "route": "cuda", "source": "glare_tpu_torch/csrc/dcn_bwd.cu",
+           "replaces": "glare_tpu/ops/dcn.py:185 (XLA autodiff of modulated_deform_conv_chain in bf16; "
+                       "no Pallas kernel)",
+           "max_abs_err": max(e["kernel_vs_plain_max_abs"] for c in cases.values()
+                              for e in c["outputs"].values()),
+           "tol": f"per output: relative RMS from the float32 plain backward <= {STAGE_RATIO} x the plain "
+                  f"bf16 backward's + {STAGE_ABS_SLACK}; zero beyond the clamp",
+           "ms": mean(timed, "ms"), "plain_ms": mean(timed, "plain_ms"), "bound_ms": mean(timed, "bound_ms"),
+           "bound_by": by(timed), "library_ms": None, "library_note": _dcn_library_note(),
+           "bound_with_round_trips_ms": mean(timed, "bound_with_round_trips_ms"),
+           "note": "ms: the whole bf16 backward (dcn_bwd_im2col_bf16, the two bf16 products with float32 "
+                   "accumulation, dcn_bwd_coord_bf16; no grad_x); bound_ms: inputs read and outputs written "
+                   "once; bound_with_round_trips_ms: also the column and grad_col through device memory once "
+                   "each; max_abs_err: kernel against the plain bf16 backward; " + note,
+           "by_shape": timed, "cases": cases}
+    hop = {"name": "dcn_hopper_train", "route": "cuda", "source": "glare_tpu_torch/csrc/dcn_hopper.cu",
+           "replaces": "glare_tpu/ops/dcn_pallas.py:55",
+           "max_abs_err": max(t["max_abs_err"] for t in fwd.values()),
+           "tol": "bf16: 2^-7 * max(1, max|ref|); the pallas counter exact",
+           "ms": mean(fwd, "ms"), "plain_ms": mean(fwd, "plain_ms"), "bound_ms": mean(fwd, "bound_ms"),
+           "bound_by": by(fwd), "library_ms": None, "library_note": _dcn_library_note(),
+           "note": "the Hopper entry at the training shapes, the bf16 training path's forward under "
+                   "ModulatedDeformConvFunction (its count from the kernel); " + note,
+           "by_shape": fwd}
+    return bwd, hop
+
+
 def phase_kernels():
-    ks = [check_vq(), *check_attn(), *check_dcn(), *check_dcn_cascade(), *check_dcn_bwd()]
+    ks = [check_vq(), *check_attn(), *check_dcn(), *check_dcn_cascade(), *check_dcn_bwd(),
+          *check_dcn_bwd_bf16()]
     emit({"phase": "kernels", "kernels": [
         {"name": k["name"], "max_err": k["max_abs_err"], "tol": k["tol"], "kernel_ms": k["ms"],
          "plain_ms": k["plain_ms"], "library_ms": k["library_ms"],
@@ -1056,13 +1245,16 @@ def counters():
     require(dcn_ops.launches == sum(dcn.values()) and dcn_ops.cascade_launches == sum(cas.values()),
             "DCN counts disagree")
     bwd = dcn_ops.bwd_launches_by_entry
-    require(bwd["im2col"] == bwd["coord"] == dcn_ops.bwd_launches and bwd["input"] <= bwd["coord"],
+    require(bwd["coord"] + bwd["coord_bf16"] == dcn_ops.bwd_launches
+            and all(bwd["im2col" + s] == bwd["coord" + s] and bwd["input" + s] <= bwd["coord" + s]
+                    for s in ("", "_bf16")),
             f"DCN backward counts disagree: {dcn_ops.bwd_launches} launches, by kernel {bwd}")
     return {"vq_argmin": vq_ops.launches, "attn_hopper": by_entry["hopper"],
             "attn_wmma": by_entry["wmma"], "attn_f32": by_entry["f32"],
             "dcn_hopper": dcn["hopper"], "dcn_fwd": dcn["wmma"], "dcn_fwd_f32": dcn["f32"],
             "dcn_hopper_cascade": cas["hopper"], "dcn_cascade_fwd": cas["wmma"] + cas["f32"],
-            "dcn_cascade_select": dcn_ops.select_launches, "dcn_bwd": dcn_ops.bwd_launches}
+            "dcn_cascade_select": dcn_ops.select_launches, "dcn_bwd": bwd["coord"],
+            "dcn_bwd_bf16": bwd["coord_bf16"]}
 
 
 def reset_counters():
@@ -1077,7 +1269,8 @@ def reset_counters():
 def dcn_on_hopper_only(moved, what):
     """Every DCN launch in ``moved`` went through the Hopper entries."""
     require(moved["dcn_fwd"] == 0 and moved["dcn_fwd_f32"] == 0 and moved["dcn_cascade_fwd"] == 0
-            and moved["dcn_bwd"] == 0, f"{what}: DCN launches off the Hopper entry: {moved}")
+            and moved["dcn_bwd"] == 0 and moved["dcn_bwd_bf16"] == 0,
+            f"{what}: DCN launches off the Hopper entry: {moved}")
 
 
 def moved_since(before):
@@ -1178,10 +1371,7 @@ def phase_main_path():
     model = create_model(lol_opt(), device="cuda")
     temper_offset_heads(model.netG, seed=7, std=0.02)
     build_s = time.time() - t0
-    expected = {"vq_argmin": 1, "attn_hopper": 11, "attn_wmma": 0, "attn_f32": 0,
-                "dcn_hopper": 2, "dcn_fwd": 0, "dcn_fwd_f32": 0, "dcn_bwd": 0,
-                "dcn_hopper_cascade": 0, "dcn_cascade_fwd": 0,
-                "dcn_cascade_select": 0}
+    expected = {**{k: 0 for k in counters()}, "vq_argmin": 1, "attn_hopper": 11, "dcn_hopper": 2}
 
     # warm-up request (cuDNN autotuning, allocator), not counted
     model.get_sr(dev(seeded_image(99)))
@@ -1297,10 +1487,8 @@ def phase_hybrid_path():
         return m
 
     model = build("hybrid")          # conf defaults: R 2, R_tail 8, capacity 0.125
-    per_call = {"vq_argmin": 1, "attn_hopper": 11, "attn_wmma": 0, "attn_f32": 0,
-                "dcn_hopper": 0, "dcn_fwd": 0, "dcn_fwd_f32": 0, "dcn_bwd": 0,
-                "dcn_hopper_cascade": 2, "dcn_cascade_fwd": 0,
-                "dcn_cascade_select": 2}
+    per_call = {**{k: 0 for k in counters()}, "vq_argmin": 1, "attn_hopper": 11,
+                "dcn_hopper_cascade": 2, "dcn_cascade_select": 2}
     model.get_sr(dev(seeded_image(99)))   # warm-up, not counted
     torch.cuda.synchronize()
     reset_counters()
@@ -1420,10 +1608,7 @@ def phase_stage2_path():
     build_s = time.time() - t0
     # attention: 3 blocks in ConEncoder1 + 4 in the VQGAN decoder, each above the
     # 8192-token threshold at 15000 tokens; one codebook retrieval
-    per_call = {"vq_argmin": 1, "attn_hopper": 7, "attn_wmma": 0, "attn_f32": 0,
-                "dcn_hopper": 0, "dcn_fwd": 0, "dcn_fwd_f32": 0, "dcn_bwd": 0,
-                "dcn_hopper_cascade": 0, "dcn_cascade_fwd": 0,
-                "dcn_cascade_select": 0}
+    per_call = {**{k: 0 for k in counters()}, "vq_argmin": 1, "attn_hopper": 7}
     model.decode_latent(model.get_sr(dev(seeded_image(98, 1, H2, W2))))   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1583,36 +1768,37 @@ STEP_GRAD_TOL = 1e-3    # of each tensor's largest gradient
 STEP_VANISH = 1e-6      # of the step's largest gradient: a tensor that vanishes in exact arithmetic
 
 
-def phase_train_path():
-    """Stage-3 training at the full width of confs/train_stage3_LOL.yml, float32, the
-    256 crop at batch 2, seeded weights, synthetic pairs: one warm-up step (its
-    update is 0: warmup from count 0) and three timed steps through
-    VQLLFLOWDModel.optimize_parameters, launch counters per step; then one step's
-    loss and gradients through the kernels against the same step through the
-    plain versions (autograd of modulated_deform_conv_ref for the DCN)."""
+def _train_model(mixed_precision):
+    """The training model of train_opt() (bf16 compute with float32 master weights
+    when ``mixed_precision``), offset heads tempered. -> (model, build seconds)."""
     from glare_tpu_torch.models import create_model
-    from glare_tpu_torch.models.vqllflowd_model import FROZEN, temper_offset_heads
+    from glare_tpu_torch.models.vqllflowd_model import temper_offset_heads
 
-    require(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
-            "TF32 is on: the float32 training path would not be float32")
     t0 = time.time()
-    model = create_model(train_opt(), device="cuda")
+    opt = train_opt()
+    if mixed_precision:
+        opt["train"]["mixed_precision"] = True
+    model = create_model(opt, device="cuda")
     temper_offset_heads(model.netG, seed=7, std=0.02)
-    build_s = time.time() - t0
-    batches = [train_batch(60 + i) for i in range(5)]
-    spread = condition_offset_heads(model, batches[0])
-    per_step = {**{k: 0 for k in counters()}, "vq_argmin": 1, "dcn_fwd_f32": 2, "dcn_bwd": 2}
-    # x of both warps is the VQ decoder's tap, under no-grad: no grad_x kernel
-    bwd_per_step = {"im2col": 2, "coord": 2, "input": 0}
+    return model, time.time() - t0
+
+
+def _train_steps(model, batches, per_step, bwd_per_step):
+    """A warm-up step and three timed steps of optimize_parameters, launch
+    counters per step (exactly ``per_step`` and ``bwd_per_step``), no plain-version
+    call; the warm-up update (lr 0) leaves every parameter bit-equal, every later
+    one moves every tensor with a live gradient; the frozen sub-networks and the
+    VQGAN bit-equal. -> (steps, counts over the steps, peak memory)."""
+    from glare_tpu_torch.models.vqllflowd_model import FROZEN
+
     frozen0 = {n: p.detach().clone() for n, p in model.netG.named_parameters()
                if n.split(".", 1)[0] in FROZEN}
     vq0 = {n: t.detach().clone() for n, t in model.net_hq.state_dict().items()}
     taps = 2 * sum(TRAIN_BATCH * (TRAIN_GT // s) ** 2 * 4 * 9 for s in (2, 1))
-
     reset_counters()
     steps, moved_after = [], []
     with counted_plain_versions() as plain_calls:
-        for i, batch in enumerate(batches[:4]):
+        for i, batch in enumerate(batches):
             if i == 1:
                 torch.cuda.reset_peak_memory_stats()
             params0 = {n: p.detach().clone() for n, p in model.trainable_parameters()}
@@ -1645,6 +1831,31 @@ def phase_train_path():
             require(not p.requires_grad and torch.equal(p, frozen0[n]), f"frozen {n} changed")
     for n, t in model.net_hq.state_dict().items():
         require(torch.equal(t, vq0[n]), f"VQGAN {n} changed")
+    return steps, path_counts, peak_mem
+
+
+def _steps_summary(steps):
+    timed = steps[1:]
+    ms_mean = sum(t["ms"] for t in timed) / len(timed)
+    return {"steps": steps, "ms_per_step": ms_mean, "images_per_s": TRAIN_BATCH / ms_mean * 1e3}
+
+
+def phase_train_path():
+    """Stage-3 training at the full width of confs/train_stage3_LOL.yml, float32, the
+    256 crop at batch 2, seeded weights, synthetic pairs: one warm-up step (its
+    update is 0: warmup from count 0) and three timed steps through
+    VQLLFLOWDModel.optimize_parameters, launch counters per step; then one step's
+    loss and gradients through the kernels against the same step through the
+    plain versions (autograd of modulated_deform_conv_ref for the DCN)."""
+    require(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+            "TF32 is on: the float32 training path would not be float32")
+    model, build_s = _train_model(False)
+    batches = [train_batch(60 + i) for i in range(5)]
+    spread = condition_offset_heads(model, batches[0])
+    per_step = {**{k: 0 for k in counters()}, "vq_argmin": 1, "dcn_fwd_f32": 2, "dcn_bwd": 2}
+    # x of both warps is the VQ decoder's tap, under no-grad: no grad_x kernel
+    bwd_per_step = {**{k: 0 for k in dcn_ops.bwd_launches_by_entry}, "im2col": 2, "coord": 2}
+    steps, path_counts, peak_mem = _train_steps(model, batches[:4], per_step, bwd_per_step)
 
     # one step's loss and gradients: kernels against the plain versions, same weights and batch
     loss_k, parts_k, grads_k, gap_k = _step_grads(model, batches[4])
@@ -1670,18 +1881,103 @@ def phase_train_path():
            "offset_grid_gap": [gap_k, gap_p],
            "tol": f"loss {STEP_LOSS_TOL} relative; each gradient within {STEP_GRAD_TOL} of its largest "
                   f"(a tensor below {STEP_VANISH} of the step's largest must vanish on both)"}
-    timed = steps[1:]
-    ms_mean = sum(t["ms"] for t in timed) / len(timed)
     emit({"phase": "train_path", "config": "confs/train_stage3_LOL.yml widths, float32, dcn_impl chain R=2",
           "crop": [TRAIN_GT, TRAIN_GT], "batch": TRAIN_BATCH, "model_build_s": round(build_s, 2),
           "offset_heads": {"bias": "half-integers in [-2.5, 2.5]", "input_dependent_px": spread,
                            "dcn_bias": "+1"},
-          "steps": steps, "ms_per_step": ms_mean, "images_per_s": TRAIN_BATCH / ms_mean * 1e3,
-          "launches_total": path_counts, "expected_per_step": per_step,
+          **_steps_summary(steps), "launches_total": path_counts, "expected_per_step": per_step,
           "max_memory_allocated": peak_mem, "kernel_vs_plain_step": cmp})
     require(min(gap_k, gap_p) > 0.02, f"offsets within {min(gap_k, gap_p)} px of the integer grid")
     require(cmp["loss_rel"] <= STEP_LOSS_TOL, f"step loss: kernels {loss_k}, plain {loss_p}")
     require(worst[worst_name] <= STEP_GRAD_TOL, f"gradient {worst_name}: {worst[worst_name]}")
+    return path_counts, model
+
+
+@contextlib.contextmanager
+def _float32_compute(model):
+    """The same model's networks computing in float32 for the block (the bf16
+    VQGAN's weights widened exactly), then bf16 again."""
+    from glare_tpu_torch.nn.layers import cast_convs_
+
+    model.netG.set_compute_dtype(torch.float32, master_weights=True)
+    cast_convs_(model.net_hq, torch.float32)
+    try:
+        yield
+    finally:
+        model.netG.set_compute_dtype(torch.bfloat16, master_weights=True)
+        cast_convs_(model.net_hq, torch.bfloat16)
+
+
+def _rel_rms(a, ref):
+    ref = ref.double()
+    return float(((a.double() - ref) ** 2).mean().sqrt()) / max(float((ref ** 2).mean().sqrt()), 1e-30)
+
+
+def phase_train_path_bf16():
+    """train.mixed_precision: the same training at bf16 compute with float32 master
+    weights and Adam moments, through the Hopper DCN forward (entry hopper) and
+    the bf16 backward entries of csrc/dcn_bwd.cu: a warm-up step and three timed
+    steps (as train_path), exactly {vq_argmin 1, dcn_hopper 2, dcn_bwd_bf16 2} a
+    step and no plain version. Then one step's loss and gradients three ways on
+    the same weights and batch: bf16 through the kernels, bf16 through the plain
+    versions, float32 through the plain versions; the kernel step may be at most
+    STAGE_RATIO x as far (relative RMS per gradient, relative for the loss) from
+    the float32 step as the plain bf16 step is, + STAGE_ABS_SLACK."""
+    model, build_s = _train_model(True)
+    require(model.dtype == torch.bfloat16, "train.mixed_precision did not set bf16 compute")
+    batches = [train_batch(80 + i) for i in range(5)]
+    spread = condition_offset_heads(model, batches[0])
+    per_step = {**{k: 0 for k in counters()}, "vq_argmin": 1, "dcn_hopper": 2, "dcn_bwd_bf16": 2}
+    bwd_per_step = {**{k: 0 for k in dcn_ops.bwd_launches_by_entry}, "im2col_bf16": 2, "coord_bf16": 2}
+    steps, path_counts, peak_mem = _train_steps(model, batches[:4], per_step, bwd_per_step)
+    for n, p in model.netG.named_parameters():
+        require(p.dtype == torch.float32, f"parameter {n} is {p.dtype}")
+    for _, p in model.trainable_parameters():
+        st = model.optimizer.state[p]
+        require(st["exp_avg"].dtype == st["exp_avg_sq"].dtype == torch.float32, "Adam moments not float32")
+
+    loss_k, parts_k, grads_k, gap_k = _step_grads(model, batches[4])
+    with plain_versions():
+        before = counters()
+        loss_p, parts_p, grads_p, gap_p = _step_grads(model, batches[4])
+        with _float32_compute(model):
+            loss_f, parts_f, grads_f, gap_f = _step_grads(model, batches[4])
+        torch.cuda.synchronize()
+        require(counters() == before, "a plain-version step launched a kernel")
+    top = max(float(g.abs().max()) for g in grads_f.values())
+    dist = {}
+    for n, gf in grads_f.items():
+        if float(gf.abs().max()) <= STEP_VANISH * top:   # vanishes in exact arithmetic: the step's scale
+            d = lambda g, gf=gf: float((g.double() - gf.double()).abs().max()) / top  # noqa: E731
+        else:
+            d = lambda g, gf=gf: _rel_rms(g, gf)  # noqa: E731
+        dist[n] = (d(grads_k[n]), d(grads_p[n]))
+    ratio = {n: dk / (STAGE_RATIO * dp + STAGE_ABS_SLACK) for n, (dk, dp) in dist.items()}
+    worst = max(ratio, key=ratio.get)
+    loss_d = [abs(a - b) / abs(b) for a, b in zip([loss_k] + parts_k, [loss_f] + parts_f)]
+    loss_dp = [abs(a - b) / abs(b) for a, b in zip([loss_p] + parts_p, [loss_f] + parts_f)]
+    cmp = {"loss_kernel": loss_k, "loss_plain_bf16": loss_p, "loss_float32": loss_f,
+           "parts_kernel": parts_k, "parts_plain_bf16": parts_p, "parts_float32": parts_f,
+           "loss_dist_kernel": loss_d, "loss_dist_plain_bf16": loss_dp,
+           "grad_worst_tensor": worst, "grad_worst_dist": dist[worst], "grad_worst_ratio_of_limit": ratio[worst],
+           "grad_median_dist": [statistics.median(d[0] for d in dist.values()),
+                                statistics.median(d[1] for d in dist.values())],
+           "offset_grid_gap": [gap_k, gap_p, gap_f],
+           "tol": f"kernel_vs_f32 <= {STAGE_RATIO} * plain_bf16_vs_f32 + {STAGE_ABS_SLACK} (relative RMS "
+                  "per gradient; relative for the loss and its parts; a gradient below "
+                  f"{STEP_VANISH} of the step's largest in units of that largest)"}
+    emit({"phase": "train_path_bf16",
+          "config": "confs/train_stage3_LOL.yml widths, train.mixed_precision (bf16 compute, float32 "
+                    "master weights), dcn_impl chain R=2",
+          "crop": [TRAIN_GT, TRAIN_GT], "batch": TRAIN_BATCH, "model_build_s": round(build_s, 2),
+          "offset_heads": {"bias": "half-integers in [-2.5, 2.5]", "input_dependent_px": spread,
+                           "dcn_bias": "+1"},
+          **_steps_summary(steps), "launches_total": path_counts, "expected_per_step": per_step,
+          "max_memory_allocated": peak_mem, "kernel_vs_plain_step": cmp})
+    require(min(gap_k, gap_p, gap_f) > 0.02, f"offsets within {min(gap_k, gap_p, gap_f)} px of the grid")
+    for i, (dk, dp) in enumerate(zip(loss_d, loss_dp)):
+        require(dk <= STAGE_RATIO * dp + STAGE_ABS_SLACK, f"step loss term {i}: {dk} against {dp}")
+    require(ratio[worst] <= 1.0, f"gradient {worst}: kernel {dist[worst][0]}, plain bf16 {dist[worst][1]}")
     return path_counts, model
 
 
@@ -1745,8 +2041,11 @@ def phase_profile(fn, what):
 PATHS = {"vq_argmin": "main_path", "attn_hopper": "main_path", "attn_wmma": None, "attn_f32": None,
          "dcn_hopper": "main_path", "dcn_fwd": None, "dcn_fwd_f32": "train_path", "dcn_bwd": "train_path",
          "dcn_hopper_cascade": "hybrid_path",
-         "dcn_cascade_select": "hybrid_path", "dcn_cascade_fwd": None}
-ALL_PHASES = "device,build,kernels,main_path,hybrid_path,stage2_path,train_path"
+         "dcn_cascade_select": "hybrid_path", "dcn_cascade_fwd": None,
+         "dcn_bwd_bf16": "train_path_bf16", "dcn_hopper_train": "train_path_bf16"}
+# a row whose launches are another row's counter (the same entry on another path)
+COUNTER_OF = {"dcn_hopper_train": "dcn_hopper"}
+ALL_PHASES = "device,build,kernels,main_path,hybrid_path,stage2_path,train_path,train_path_bf16"
 
 
 def main():
@@ -1754,8 +2053,8 @@ def main():
     ap.add_argument("--phases", default=ALL_PHASES,
                     help="comma list; the last line is printed only when all of them ran")
     ap.add_argument("--profile", action="store_true",
-                    help="after main_path, trace one get_sr (after train_path, one training "
-                         "step) with torch.profiler and print device time by kernel category")
+                    help="after main_path, trace one get_sr (after train_path and train_path_bf16, "
+                         "one training step) with torch.profiler and print device time by kernel category")
     args = ap.parse_args()
     phases = args.phases.split(",")
     t_start = time.time()
@@ -1784,17 +2083,26 @@ def main():
             phase_profile(lambda: model.optimize_parameters(batch),
                           "one stage-3 training step, batch 2, 256x256, float32")
         del model
+        torch.cuda.empty_cache()
+    if "train_path_bf16" in phases:
+        counts["train_path_bf16"], model = phase_train_path_bf16()
+        if args.profile:
+            batch = train_batch(71)
+            phase_profile(lambda: model.optimize_parameters(batch),
+                          "one stage-3 training step, batch 2, 256x256, train.mixed_precision (bf16)")
+        del model
     if any(ph not in phases for ph in ALL_PHASES.split(",")):
         emit({"partial": True, "phases": phases, "seconds": round(time.time() - t_start, 1)})
         return
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "launches_by_path")
     for k in kernels:
-        k["launches_by_path"] = {path: c[k["name"]] for path, c in counts.items()}
+        k["launches_by_path"] = {path: c[COUNTER_OF.get(k["name"], k["name"])] for path, c in counts.items()}
         path = PATHS[k["name"]]
         k["launches"] = k["launches_by_path"][path or "main_path"]
         require(path is None or k["launches"] > 0, f"kernel {k['name']} was never launched on {path}")
-    extras = ("library_call", "kernel_ms", "smem_bytes", "sdpa_by_backend")
+    extras = ("library_call", "library_note", "kernel_ms", "smem_bytes", "sdpa_by_backend",
+              "bound_with_round_trips_ms")
     emit({"kernels": [{**{key: k[key] for key in keys}, **{key: k[key] for key in extras if key in k}}
                       for k in kernels]})
     emit({"seconds": round(time.time() - t_start, 1)})

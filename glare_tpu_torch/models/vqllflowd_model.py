@@ -19,8 +19,13 @@ Training (``is_train``): ``optimize_parameters`` is the reference's step,
 with ``RRDB`` and ``flowUpsamplerNet`` frozen (``requires_grad`` False, out of
 the optimizer) and Adam (beta1, beta2, eps 1e-8; decoupled weight decay when
 ``weight_decay_G`` > 0, as the JAX optax chain) at ``schedule(k)`` on its k-th
-update. The network is float32 (``train.mixed_precision`` is not ported yet). On
-the card the DCNs run the forward kernel and ``csrc/dcn_bwd.cu`` under autograd.
+update. ``train.mixed_precision`` is the JAX package's ``dtype=bfloat16`` for
+training: the parameters stay float32 (AdamW's master weights and moments), the
+convolutions of the encoder and the AFT decoder compute in bf16 (weights cast at
+use), the VQGAN decodes in bf16 as in serving, the flow, the losses and the
+optimizer stay float32. On the card the DCNs run the forward kernel and
+``csrc/dcn_bwd.cu`` under autograd (float32: the ``f32`` forward entry; bf16: the
+Hopper entry and the bf16 backward entries).
 """
 
 from __future__ import annotations
@@ -60,13 +65,12 @@ def temper_offset_heads(netG, seed=0, std=0.02):
 class VQLLFLOWDModel(BaseModel):
     def __init__(self, opt, step=0, device="cuda"):
         super().__init__(opt, device=device)
-        if self.is_train and opt_get(opt, ["train", "mixed_precision"]):
-            raise NotImplementedError(
-                "train.mixed_precision (bf16 compute, float32 master weights) is not ported "
-                "yet: it needs the DCN backward in bf16 (queued in ROADMAP.md)")
         self.heats = opt_get(opt, ["val", "heats"])
-        bf16 = not self.is_train and opt.get("inference_dtype") == "bfloat16"
-        self.dtype = torch.bfloat16 if bf16 else torch.float32
+        if self.is_train:
+            bf16 = bool(opt_get(opt, ["train", "mixed_precision"]))
+        else:
+            bf16 = opt.get("inference_dtype") == "bfloat16"
+        self.dtype = torch.bfloat16 if bf16 else torch.float32  # the compute dtype
         self.netG = define_Flow(opt, step)
         assert isinstance(self.netG, VQLLFLOWDeformable)
         self.net_hq = find_vqgan(opt)
@@ -101,8 +105,9 @@ class VQLLFLOWDModel(BaseModel):
         for net in (self.netG, self.net_hq):
             net.to(self.device).eval().requires_grad_(False)
             net.to(memory_format=torch.channels_last)
-        self.netG.set_compute_dtype(self.dtype)  # the flow stays float32
-        cast_convs_(self.net_hq, self.dtype)
+        # the flow stays float32; training keeps float32 parameters (cast at use)
+        self.netG.set_compute_dtype(self.dtype, master_weights=self.is_train)
+        cast_convs_(self.net_hq, self.dtype)  # frozen and not saved: stored as it computes
         self._dcn_overflow_raw = None
         if self.is_train:
             self._label_trainable()

@@ -262,7 +262,8 @@ class MultiScaleDecoder2(nn.Module):
                 x_code = code_decoder_output[w].to(h.dtype)
                 h = self.mix[w](enc_feat[i_level].to(h.dtype), h)
                 x_vq = self.warp[w](x_code, h)
-                ratio = (h.float().mean() / x_vq.float().mean()).to(h.dtype)
+                # the JAX module's jnp.mean: float32 sums, a result in h's dtype
+                ratio = h.float().mean().to(h.dtype) / x_vq.float().mean().to(h.dtype)
                 h = h + x_vq * ratio
             if i_level != 0:
                 h = level.upsample(h)

@@ -11,7 +11,8 @@ The reverse pass decomposes into two halves around the frozen VQGAN decode
 
 Sub-module names are the reference checkpoint's: ``RRDB``, ``flowUpsamplerNet``,
 ``deformable_decoder``. The flow always runs in float32; ``set_compute_dtype``
-casts the convolutions of the encoder and the AFT decoder.
+sets the compute dtype of the convolutions of the encoder and the AFT decoder
+(stored in it for serving, or float32 master weights cast at use for training).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Any
 
 from torch import nn
 
-from ..nn.layers import cast_convs_
+from ..nn.layers import cast_convs_, set_conv_compute_dtype_
 from .condition_encoder import ConEncoder1
 from .deformable_decoder import MultiScaleDecoder2
 from .flow_upsampler import FlowUpsamplerNet
@@ -64,9 +65,12 @@ class VQLLFLOWDeformable(nn.Module):
             setattr(self, n, v)
         return self
 
-    def set_compute_dtype(self, dtype):
-        cast_convs_(self.RRDB, dtype)
-        cast_convs_(self.deformable_decoder, dtype)
+    def set_compute_dtype(self, dtype, master_weights=False):
+        """Convolutions of ``RRDB`` and ``deformable_decoder`` compute in ``dtype``:
+        stored in it, or (``master_weights``) kept float32 and cast at use."""
+        cast = set_conv_compute_dtype_ if master_weights else cast_convs_
+        cast(self.RRDB, dtype)
+        cast(self.deformable_decoder, dtype)
         return self
 
     def forward(self, lr, code_decoder_output=None):

@@ -13,10 +13,14 @@ them from one explicit ``torch.Generator``. Convolutions draw
 U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias (the ``nn.Conv2d``
 default distribution).
 
-Compute dtype: :func:`cast_convs_` casts the convolutions of a sub-network to
-bf16 and every :class:`Conv` casts its input to its weight's dtype, which is
-what ``dtype=jnp.bfloat16`` does in the JAX package. Norm statistics stay f32
-(``GLARE_GN_BF16=1`` keeps a bf16 norm's result in bf16, as in JAX).
+Compute dtype, two ways to what ``dtype=jnp.bfloat16`` does in the JAX package
+(parameters float32 in the tree, cast where they are used; activations in bf16):
+:func:`cast_convs_` stores the convolutions of a sub-network in bf16 (serving),
+:func:`set_conv_compute_dtype_` keeps them float32 and has each :class:`Conv`
+cast its weight and bias at use (training: float32 master weights under
+autograd). Either way a :class:`Conv` casts its input to its compute dtype.
+Norm statistics stay f32 (``GLARE_GN_BF16=1`` keeps a bf16 norm's result in
+bf16, as in JAX).
 """
 
 from __future__ import annotations
@@ -37,12 +41,14 @@ def swish(x):
 
 
 class Conv(nn.Conv2d):
-    """``nn.Conv2d`` that casts its input to the weight's dtype; optional zero init."""
+    """``nn.Conv2d`` that computes in ``compute_dtype`` (None: the weight's dtype):
+    input, weight and bias are cast to it at use. Optional zero init."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1, padding=0,
                  zero_init=False):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding)
         self.zero_init = zero_init
+        self.compute_dtype = None
         if zero_init:
             nn.init.zeros_(self.weight)
             nn.init.zeros_(self.bias)
@@ -56,8 +62,13 @@ class Conv(nn.Conv2d):
             self.weight.uniform_(-bound, bound, generator=generator)
             self.bias.uniform_(-bound, bound, generator=generator)
 
+    @property
+    def dtype(self):
+        return self.compute_dtype or self.weight.dtype
+
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        dt = self.dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class GroupNorm32(nn.GroupNorm):
@@ -183,8 +194,8 @@ class AttnBlock(nn.Module):
                              else _env_tristate("GLARE_ATTN_MAT_BF16"))
 
     def _proj_tokens(self, conv, t):
-        c = self.in_channels
-        return F.linear(t.to(conv.weight.dtype), conv.weight.view(c, c), conv.bias)
+        c, dt = self.in_channels, conv.dtype
+        return F.linear(t.to(dt), conv.weight.view(c, c).to(dt), conv.bias.to(dt))
 
     def _scores_to_out(self, q_blk, k, v, scale, mat_bf16, out_dtype):
         if mat_bf16:
@@ -201,7 +212,7 @@ class AttnBlock(nn.Module):
         b, c, h, w = x.shape
         n = h * w
         h_ = self.norm(x)
-        qkv_bf16 = self.q.weight.dtype == torch.bfloat16
+        qkv_bf16 = self.q.dtype == torch.bfloat16
         want_fused = self.use_fused if self.use_fused is not None else qkv_bf16
         if want_fused and n > self.chunk_threshold and c % 128 == 0:
             t = h_.permute(0, 2, 3, 1).reshape(b, n, c)
@@ -241,8 +252,20 @@ def seed_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def cast_convs_(module: nn.Module, dtype) -> nn.Module:
     """Cast the convolutions under ``module`` to ``dtype`` (norms, scalars and the
-    codebook stay float32)."""
+    codebook stay float32); they compute in their weights' dtype."""
     for m in module.modules():
         if isinstance(m, Conv):
             m.to(dtype)
+            m.compute_dtype = None
+    return module
+
+
+def set_conv_compute_dtype_(module: nn.Module, dtype) -> nn.Module:
+    """Keep the convolutions under ``module`` in float32 and have them compute in
+    ``dtype`` (weight and bias cast at use, so gradients reach the float32
+    parameters)."""
+    for m in module.modules():
+        if isinstance(m, Conv):
+            m.to(torch.float32)
+            m.compute_dtype = None if dtype == torch.float32 else dtype
     return module

@@ -29,7 +29,7 @@ zero. The contraction uses the weight flattened as ``[K, G, Cg, O] -> [9*C, O]``
   * :func:`modulated_deform_conv` -- dispatch by where the tensors lie: CUDA
     tensors launch a kernel (or raise), CPU tensors take the plain version.
     With grad enabled and an input that requires grad, a CUDA call goes
-    through :class:`ModulatedDeformConvFunction` (float32 only).
+    through :class:`ModulatedDeformConvFunction` (float32 or bf16 x).
 
 The backward (no Pallas counterpart: JAX takes it from XLA autodiff of its
 ``modulated_deform_conv_chain`` / ``modulated_deform_conv``):
@@ -40,10 +40,15 @@ The backward (no Pallas counterpart: JAX takes it from XLA autodiff of its
     chain op's autodiff is not at exactly integer offsets.
   * :func:`modulated_deform_conv_backward_cuda` -- ``csrc/dcn_bwd.cu``: per
     chunk of images the masked column (``dcn_bwd_im2col``), grad_weight =
-    col^T grad_out and grad_col = grad_out W^T as two float32 products, then
+    col^T grad_out and grad_col = grad_out W^T as two products, then
     grad_offset / grad_mask (``dcn_bwd_coord``) and, when x needs it, grad_x
-    by an atomic scatter (``dcn_bwd_input``). grad_bias = sum grad_out.
-  * :class:`ModulatedDeformConvFunction` -- the forward kernel (entry ``f32``)
+    by an atomic scatter (``dcn_bwd_input``). grad_bias = sum grad_out. In x's
+    type: float32 (products in full float32), or bf16 (the ``_bf16`` entries;
+    the column rounded as the Hopper forward rounds its A block, grad_col
+    bf16, the products on the tensor cores with float32 accumulation,
+    grad_weight and every other gradient accumulated in float32).
+  * :class:`ModulatedDeformConvFunction` -- the forward kernel :func:`route`
+    picks (``f32`` for float32, ``hopper`` for bf16 at the training widths)
     with that backward; the training path's DCN on the card.
 
 The cascade (counterpart of ``modulated_deform_conv_pallas_cascade``; used by
@@ -91,10 +96,11 @@ cascade_launches = 0  # +1 per launch of a cascade entry (any of the three), now
 launches_by_entry = {"hopper": 0, "wmma": 0, "f32": 0}          # +1 per launch of that entry
 cascade_launches_by_entry = {"hopper": 0, "wmma": 0, "f32": 0}  # the same, cascade entries
 select_launches = 0   # +1 per launch of dcn_cascade_select, nowhere else
-bwd_launches = 0      # +1 per launch of dcn_bwd_coord (once per chunk of a backward), nowhere else
-bwd_launches_by_entry = {"im2col": 0, "coord": 0, "input": 0}  # +1 per launch of that kernel
+bwd_launches = 0      # +1 per launch of dcn_bwd_coord[_bf16] (once per chunk of a backward), nowhere else
+bwd_launches_by_entry = {"im2col": 0, "coord": 0, "input": 0,                 # float32 entries
+                         "im2col_bf16": 0, "coord_bf16": 0, "input_bf16": 0}  # +1 per launch of that kernel
 
-BWD_CHUNK_BYTES = 1 << 30  # the backward's column and grad_col: at most ~1 GB per chunk of images
+BWD_CHUNK_BYTES = 1 << 30  # the backward's column (in x's type): at most ~1 GB per chunk of images
 
 HOPPER_O = (128, 256)  # the output widths the Hopper entry serves
 _CB = 64               # its K chunk: 64 channels of one tap
@@ -323,17 +329,15 @@ def modulated_deform_conv(x, offset, mask, weight, bias=None, max_offset=None,
     if not _build.needs_grad(x, offset, mask, weight, bias):
         return modulated_deform_conv_cuda(x, offset, mask, weight, bias, max_offset, return_overflow)
     radii = clamp_table(max_offset, offset.shape[3]).to(x.device, torch.float32).contiguous()
-    out = ModulatedDeformConvFunction.apply(x, offset, mask, weight, bias, radii)
-    return (out, clamp_overflow(offset.detach(), radii)) if return_overflow else out
+    out, overflow = ModulatedDeformConvFunction.apply(x, offset, mask, weight, bias, radii)
+    return (out, overflow) if return_overflow else out
 
 
 # ------------------------------------------------------------- the backward --
 
 def _dcn_grad_dtype(x):
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the DCN backward kernel takes float32 only, got {x.dtype}: bf16 training "
-            "(train.mixed_precision) is queued in ROADMAP.md with the bf16 backward")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the DCN backward kernels take float32 or bfloat16 x, got {x.dtype}")
 
 
 def modulated_deform_conv_backward_ref(grad_out, x, offset, mask, weight, bias=None,
@@ -358,22 +362,26 @@ def _bwd_kernels():
     if _bwd_lib is None:
         lib = _build.load("dcn_bwd")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dcn_bwd_im2col.argtypes = [p] * 5 + [i] * 5 + [p]
-        lib.dcn_bwd_coord.argtypes = [p] * 7 + [i] * 5 + [p]
-        lib.dcn_bwd_input.argtypes = [p] * 5 + [i] * 5 + [p]
-        for fn in (lib.dcn_bwd_im2col, lib.dcn_bwd_coord, lib.dcn_bwd_input):
-            fn.restype = ctypes.c_int
+        for sfx in ("", "_bf16"):
+            getattr(lib, "dcn_bwd_im2col" + sfx).argtypes = [p] * 5 + [i] * 5 + [p]
+            getattr(lib, "dcn_bwd_coord" + sfx).argtypes = [p] * 7 + [i] * 5 + [p]
+            getattr(lib, "dcn_bwd_input" + sfx).argtypes = [p] * 5 + [i] * 5 + [p]
+            for kernel in ("im2col", "coord", "input"):
+                getattr(lib, f"dcn_bwd_{kernel}{sfx}").restype = ctypes.c_int
         _bwd_lib = lib
     return _bwd_lib
 
 
 def modulated_deform_conv_backward_cuda(grad_out, x, offset, mask, weight, max_offset=None,
                                         need_x=False):
-    """The DCN backward by ``csrc/dcn_bwd.cu`` (float32). ``max_offset`` as in the
-    forward (a [G, 9] table on the device is taken as it is). Images go in
-    chunks whose column is at most ``BWD_CHUNK_BYTES``. The two products run
-    in full float32 (the package keeps TF32 off). -> (grad_x or None,
-    grad_offset, grad_mask, grad_weight [3, 3, C, O], grad_bias [O])."""
+    """The DCN backward by ``csrc/dcn_bwd.cu``, in x's type (float32 or bf16).
+    ``max_offset`` as in the forward (a [G, 9] table on the device is taken as
+    it is). Images go in chunks whose column is at most ``BWD_CHUNK_BYTES``.
+    float32: the two products in full float32 (the package keeps TF32 off).
+    bf16: grad_out and the weight rounded to bf16, the products on the tensor
+    cores with float32 accumulation, grad_weight returned in float32. ->
+    (grad_x in x's type or None, grad_offset, grad_mask, grad_weight [3, 3, C, O],
+    grad_bias [O]; the last four float32)."""
     global bwd_launches
     B, H, W, C, O, G = _check(x, offset, mask, weight)
     _dcn_grad_dtype(x)
@@ -381,64 +389,75 @@ def modulated_deform_conv_backward_cuda(grad_out, x, offset, mask, weight, max_o
         raise ValueError(f"grad_out must be {(B, H, W, O)}, got {tuple(grad_out.shape)}")
     if not all(t.is_cuda for t in (grad_out, x, offset, mask, weight)):
         raise ValueError("modulated_deform_conv_backward_cuda needs CUDA tensors")
-    _dcn_grad_dtype(grad_out)
+    dt = x.dtype
+    sfx = "" if dt == torch.float32 else "_bf16"
     x = _aligned(x.contiguous(), 16)
     offset = offset.float().contiguous()
     mask = mask.float().contiguous()
-    w2 = weight.reshape(9 * C, O).float().contiguous()
-    go = grad_out.contiguous().reshape(B * H * W, O)
+    w2 = weight.reshape(9 * C, O).to(dt).contiguous()
+    go = grad_out.to(dt).contiguous().reshape(B * H * W, O)
     radii = clamp_table(max_offset, G).to(x.device, torch.float32).contiguous()
     grad_offset = torch.empty_like(offset)
     grad_mask = torch.empty_like(mask)
-    grad_x = torch.zeros_like(x) if need_x else None
+    grad_x = torch.zeros(x.shape, dtype=torch.float32, device=x.device) if need_x else None
     grad_w2 = torch.zeros((9 * C, O), dtype=torch.float32, device=x.device)
     lib = _bwd_kernels()
-    per = max(1, BWD_CHUNK_BYTES // max(1, H * W * 9 * C * 4))
+    im2col, coord, scatter = (getattr(lib, f"dcn_bwd_{k}{sfx}") for k in ("im2col", "coord", "input"))
+    per = max(1, BWD_CHUNK_BYTES // max(1, H * W * 9 * C * x.element_size()))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         for b0 in range(0, B, per):
             nb, rows = min(per, B - b0), slice(b0 * H * W, min(B, b0 + per) * H * W)
             xs, offs, ms = x[b0:b0 + nb], offset[b0:b0 + nb], mask[b0:b0 + nb]
-            col = torch.empty((nb * H * W, 9 * C), dtype=torch.float32, device=x.device)
-            _build.check(lib.dcn_bwd_im2col(xs.data_ptr(), offs.data_ptr(), ms.data_ptr(),
-                                            radii.data_ptr(), col.data_ptr(), nb, H, W, C, G,
-                                            stream), "dcn_bwd_im2col")
-            bwd_launches_by_entry["im2col"] += 1
-            grad_w2.addmm_(col.t(), go[rows])
+            col = torch.empty((nb * H * W, 9 * C), dtype=dt, device=x.device)
+            _build.check(im2col(xs.data_ptr(), offs.data_ptr(), ms.data_ptr(), radii.data_ptr(),
+                                col.data_ptr(), nb, H, W, C, G, stream), im2col.__name__)
+            bwd_launches_by_entry["im2col" + sfx] += 1
+            if dt == torch.float32:
+                grad_w2.addmm_(col.t(), go[rows])
+            else:  # bf16 products, float32 accumulation and result
+                grad_w2.add_(torch.mm(col.t(), go[rows], out_dtype=torch.float32))
             del col
             gcol = go[rows] @ w2.t()
-            _build.check(lib.dcn_bwd_coord(xs.data_ptr(), offs.data_ptr(), ms.data_ptr(),
-                                           radii.data_ptr(), gcol.data_ptr(),
-                                           grad_offset[b0:b0 + nb].data_ptr(),
-                                           grad_mask[b0:b0 + nb].data_ptr(), nb, H, W, C, G,
-                                           stream), "dcn_bwd_coord")
+            _build.check(coord(xs.data_ptr(), offs.data_ptr(), ms.data_ptr(), radii.data_ptr(),
+                               gcol.data_ptr(), grad_offset[b0:b0 + nb].data_ptr(),
+                               grad_mask[b0:b0 + nb].data_ptr(), nb, H, W, C, G, stream),
+                         coord.__name__)
             bwd_launches += 1
-            bwd_launches_by_entry["coord"] += 1
+            bwd_launches_by_entry["coord" + sfx] += 1
             if need_x:
-                _build.check(lib.dcn_bwd_input(offs.data_ptr(), ms.data_ptr(), radii.data_ptr(),
-                                               gcol.data_ptr(), grad_x[b0:b0 + nb].data_ptr(),
-                                               nb, H, W, C, G, stream), "dcn_bwd_input")
-                bwd_launches_by_entry["input"] += 1
+                _build.check(scatter(offs.data_ptr(), ms.data_ptr(), radii.data_ptr(),
+                                     gcol.data_ptr(), grad_x[b0:b0 + nb].data_ptr(),
+                                     nb, H, W, C, G, stream), scatter.__name__)
+                bwd_launches_by_entry["input" + sfx] += 1
             del gcol
-    return grad_x, grad_offset, grad_mask, grad_w2.reshape(3, 3, C, O), go.sum(dim=0)
+    return (None if grad_x is None else grad_x.to(dt), grad_offset, grad_mask,
+            grad_w2.reshape(3, 3, C, O), go.sum(dim=0, dtype=torch.float32))
 
 
 class ModulatedDeformConvFunction(torch.autograd.Function):
-    """DCNv2 on the card under autograd: the forward kernel (float32 entry of
-    ``csrc/dcn_fwd.cu``) and the backward of ``csrc/dcn_bwd.cu``. ``radii``: the
-    [G, 9] float32 clamp table on the device. grad_x is computed only when x
-    requires grad."""
+    """DCNv2 on the card under autograd: the forward kernel :func:`route` picks
+    (the ``f32`` entry of ``csrc/dcn_fwd.cu`` for float32 x, the ``hopper`` entry
+    of ``csrc/dcn_hopper.cu`` for bf16 x at its widths) and the backward of
+    ``csrc/dcn_bwd.cu`` in x's type. ``radii``: the [G, 9] float32 clamp table
+    on the device. -> (out in x's type, overflow int64 [2]: ``[0, taps beyond
+    their radius]``, counted by the Hopper entry itself, not differentiable and
+    not kept by the Function). grad_x is computed only when x requires grad;
+    every gradient leaves in its input's type (float32 master weights get
+    float32 gradients)."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, radii):
         _dcn_grad_dtype(x)
-        out = modulated_deform_conv_cuda(x, offset, mask, weight, bias, max_offset=radii)
+        out, overflow = modulated_deform_conv_cuda(x, offset, mask, weight, bias, max_offset=radii,
+                                                   return_overflow=True)
         ctx.save_for_backward(x, offset, mask, weight, radii)
         ctx.has_bias = bias is not None
-        return out
+        ctx.mark_non_differentiable(overflow)
+        return out, overflow
 
     @staticmethod
-    def backward(ctx, grad_out):
+    def backward(ctx, grad_out, _grad_overflow):
         x, offset, mask, weight, radii = ctx.saved_tensors
         gx, goff, gm, gw, gb = modulated_deform_conv_backward_cuda(
             grad_out, x, offset, mask, weight, max_offset=radii, need_x=ctx.needs_input_grad[0])

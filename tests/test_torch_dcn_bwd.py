@@ -10,6 +10,11 @@ and sum the same terms in other orders (the JAX ops by gathers or shifted
 slices, the port by gathers); no gradient here has more than 9*C = 72 terms a
 sum.
 
+bf16: the plain backward on bf16 x and grad_out (float32 offsets, mask and
+weight, as the AFT decoder hands them over) against ``jax.vjp`` of the chain op
+in bf16, both held to the float32 vjp on the same bf16-valued inputs by the
+stage-ratio rule of PERF.md section 2.
+
 The chain caveat: at offsets that are exactly integers (every offset of the
 first stage-3 step: ``conv_offset`` starts at zero) ``jax.grad`` of the chain op
 is not the DCNv2 derivative (``|.|`` has slope +1 at 0 and ``max(0, .)`` splits
@@ -54,8 +59,8 @@ FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive
 
 
 def _jax_grads(op, args, g_out, **kw):
-    key = (op, tuple(sorted(kw.items())))
     a = (jnp.asarray(g_out),) + tuple(jnp.asarray(t) for t in args)
+    key = (op, tuple(sorted(kw.items())), tuple(str(t.dtype) for t in a))
     if key not in _VJP:
         fn = jax.jit(lambda g, *a_: jax.vjp(lambda *b: op(*b, **kw), *a_)[1](g))
         _VJP[key] = fn.lower(*a).compile(compiler_options=FAST_COMPILE)
@@ -100,6 +105,36 @@ def test_plain_backward_matches_jax_chain_off_the_grid():
     assert 0.1 < beyond.mean() < 0.5
     assert np.all(got[1][beyond] == 0) and np.all(want[1][beyond] == 0)
     assert np.abs(got[1][~beyond]).min() >= 0 and np.abs(got[1][~beyond]).max() > 0
+
+
+def test_plain_backward_bf16_by_the_ratio_rule():
+    """bf16 x and grad_out, offsets off the integer grid (clamp R 1: the smaller
+    chain graph compiles in a third of the time of R 2): each
+    gradient of the port's plain backward may be at most 1.25x as far from the
+    float32 vjp of the chain op (relative RMS) as the bf16 vjp of the chain op
+    is, + 1e-3. The two bf16 functions round at other places: the port's column
+    once, with the weight in bf16 (as the Hopper forward); the chain op sums the
+    column in bf16 over the (2R + 1)^2 shifts and keeps a float32 weight."""
+    args, g_out = _inputs(seed=5, off_scale=1.0)
+    off = args[1]
+    off[np.abs(off - np.round(off)) < 0.05] += 0.1
+    assert np.abs(off - np.round(off)).min() > 0.02
+    bf = lambda a: torch.tensor(a).bfloat16()  # noqa: E731
+    xb, gb = bf(args[0]), bf(g_out)
+    as_f32 = lambda t: t.float().numpy()  # noqa: E731
+    f32_args = (as_f32(xb),) + args[1:]
+    want = _jax_grads(jax_chain, f32_args, as_f32(gb), max_offset=1)
+    jb_args = (as_f32(xb).astype(jnp.bfloat16),) + args[1:]
+    jax_bf16 = _jax_grads(jax_chain, jb_args, as_f32(gb).astype(jnp.bfloat16), max_offset=1)
+    t = [torch.tensor(a) for a in args[1:]]
+    got = dcn_ops.modulated_deform_conv_backward_ref(gb, xb, *t, max_offset=1)
+    assert got[0].dtype == torch.bfloat16 and got[3].dtype == torch.float32
+    for name, g, j, w in zip(NAMES, got, jax_bf16, want):
+        w = w.astype(np.float64)
+        rms = np.sqrt((w ** 2).mean())
+        d = lambda a: float(np.sqrt(((np.asarray(a, np.float64) - w) ** 2).mean()) / rms)  # noqa: E731
+        d_port, d_jax = d(g.float().numpy()), d(np.asarray(j, np.float32))
+        assert d_port <= 1.25 * d_jax + 1e-3, (name, d_port, d_jax)
 
 
 def test_chain_caveat_at_zero_offsets():
@@ -171,7 +206,8 @@ def test_kernel_wrappers_refuse_grad_on_the_card(monkeypatch):
 
     def fake_fwd(x_, off_, mask_, w_, b_, max_offset=None, return_overflow=False, entry=None):
         calls.append(("fwd", torch.is_grad_enabled()))
-        return dcn_ops.modulated_deform_conv_ref(x_, off_, mask_, w_, b_, max_offset=max_offset)
+        return dcn_ops.modulated_deform_conv_ref(x_, off_, mask_, w_, b_, max_offset=max_offset,
+                                                 return_overflow=return_overflow)
 
     def fake_bwd(g, x_, off_, mask_, w_, max_offset=None, need_x=False):
         calls.append(("bwd", need_x))
@@ -195,6 +231,9 @@ def test_kernel_wrappers_refuse_grad_on_the_card(monkeypatch):
     with torch.no_grad():
         dcn_ops.modulated_deform_conv(x, offr, mask, wr, b, max_offset=2)
     assert calls == [("fwd", False)]
-    # bf16 under autograd has no backward kernel yet: it points at the roadmap
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dcn_ops.modulated_deform_conv(x.bfloat16(), offr, mask, wr, b, max_offset=2)
+    # bf16 x under autograd: the same Function (the bf16 backward entries on the card)
+    calls.clear()
+    out16 = dcn_ops.modulated_deform_conv(x.bfloat16(), offr, mask, wr, b, max_offset=2)
+    assert out16.dtype == torch.bfloat16
+    out16.float().sum().backward()
+    assert calls == [("fwd", False), ("bwd", False)] and wr.grad.dtype == torch.float32

@@ -129,9 +129,12 @@ def test_unported_parts_raise_with_a_pointer():
     opt = _opt("xla")
     opt["is_train"] = True
     opt["train"] = {"manual_seed": 1, "lr_G": 5e-5, "mixed_precision": True}
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_model(opt, device="cpu")
-    # ported since: the cascade, the chain op, stage-3 training and the stage-2 model build
+    # ported since: bf16 training (float32 parameters, bf16 compute), the cascade, the
+    # chain op, stage-3 training and the stage-2 model build
+    mixed = create_model(opt, device="cpu")
+    assert mixed.dtype == torch.bfloat16 and hasattr(mixed, "optimizer")
+    assert all(p.dtype == torch.float32 for p in mixed.netG.parameters())
+    assert mixed.netG.deformable_decoder.conv_in.dtype == torch.bfloat16
     assert create_model(_opt("hybrid"), device="cpu").netG.dcn_impl == "hybrid"
     assert create_model(_opt("chain"), device="cpu").netG.dcn_impl == "chain"
     del opt["train"]["mixed_precision"]

@@ -33,6 +33,12 @@ divides by sqrt(v), so elements whose gradient is rounding noise move by up to
 lr either way). Both sides are float32; the graph is ~60 convolutions, two
 DCNs, the VGG and MS-SSIM, and rounding differences of 1e-6 grow along it.
 
+bf16 (``train.mixed_precision``): JAX's bf16 step (the generator and the VQ
+model with ``dtype=bfloat16``, one more jit) and the port's, two steps each on
+the same weights and batches, are both held to JAX's float32 steps: the port's
+may be at most 1.25x as far as JAX's, + 1e-3 (the stage-ratio rule of PERF.md
+section 2; see the test). The port keeps float32 parameters and Adam moments.
+
 Also here: the schedules, MS-SSIM, the perceptual loss, the GLARE_GN_BF16
 group norm against JAX, and the training CLI on a synthetic image folder.
 """
@@ -105,6 +111,28 @@ def _torch_named(tree, params):
             if k.startswith("deformable_decoder.")}
 
 
+def _jax_model(net_p, vq_p, vgg_p, dtype=None):
+    """The JAX model through ``VQLLFLOWDModel.__new__``: the mini generator and
+    VQ model (compute ``dtype``, as ``glare_tpu/models/vqllflowd_model.py:60-64``
+    builds them), the given weights, ``_build_optimizer``."""
+    net = JNet(K=2, L=1, additional_flow_no_affine=2, dcn_impl="chain", dcn_max_offset=2,
+               dtype=dtype, **MINI)
+    vq = JVQModel(vq_backend="ref", dtype=dtype, **VQ)
+    jm = JModel.__new__(JModel)
+    jm.netG, jm.net_hq, jm.mesh, jm._jit_cache = net, vq, None, {}
+    jm.params = jax.tree.map(jnp.asarray, net_p)
+    jm.vq_variables = {"params": jax.tree.map(jnp.asarray, vq_p)}
+    jm.perceptual = JPerceptual(params={"params": jax.tree.map(jnp.asarray, vgg_p)})
+    jm._build_optimizer(TRAIN)
+    return jm
+
+
+def _jax_step(jm, batch):
+    """The jitted ``_train_step_fn`` compiled with the fast options."""
+    args = (jm.params, jm.opt_state, jm.vq_variables) + tuple(map(jnp.asarray, batch))
+    return jm._train_step_fn().lower(*args).compile(compiler_options=FAST_COMPILE)
+
+
 @pytest.fixture(scope="module")
 def jax_run():
     """Two JAX train steps (one jit, shared by every case here)."""
@@ -135,14 +163,8 @@ def jax_run():
         dcn["conv_offset"]["kernel"] *= np.float32(0.05)
         dcn["conv_offset"]["bias"][:72] = rng.integers(-3, 3, 72) + np.float32(0.5)
 
-    jm = JModel.__new__(JModel)
-    jm.netG, jm.net_hq, jm.mesh, jm._jit_cache = net, vq, None, {}
-    jm.params = jax.tree.map(jnp.asarray, net_p)
-    jm.vq_variables = {"params": jax.tree.map(jnp.asarray, vq_p)}
-    jm.perceptual = JPerceptual(params={"params": jax.tree.map(jnp.asarray, vgg_p)})
-    jm._build_optimizer(TRAIN)
-    args = (jm.params, jm.opt_state, jm.vq_variables) + tuple(map(jnp.asarray, batches[0]))
-    step = jm._train_step_fn().lower(*args).compile(compiler_options=FAST_COMPILE)
+    jm = _jax_model(net_p, vq_p, vgg_p)
+    step = _jax_step(jm, batches[0])
     params, opt_state, losses, mus = jm.params, jm.opt_state, [], []
     for lq, gt in batches:
         params, opt_state, total, parts = step(params, opt_state, jm.vq_variables,
@@ -244,6 +266,109 @@ def test_optimizer_state_and_parameters_after_step_two(jax_run, port_run):
         if n.split(".", 1)[0] in ("RRDB", "flowUpsamplerNet"):
             assert not p.requires_grad and torch.equal(p, port_run["frozen0"][n]), n
     assert all(not p.requires_grad for p in model.net_hq.parameters())
+
+
+# The bf16 steps (train.mixed_precision), held to JAX's float32 steps above.
+BF16_RATIO, BF16_SLACK = 1.25, 1e-3
+
+
+@pytest.fixture(scope="module")
+def bf16_run(jax_run):
+    """``train.mixed_precision``: JAX's bf16 ``_train_step_fn`` (one more jit) and
+    the port's bf16 ``optimize_parameters``, two steps each on the float32
+    fixture's weights and batches. The first update is exactly 0 (warmup from
+    count 0), so both steps of each run are taken at the same weights: two
+    gradients of the same function, as in the float32 fixture."""
+    jm = _jax_model(jax_run["net_p"], jax_run["vq_p"], jax_run["vgg_p"], dtype=jnp.bfloat16)
+    step = _jax_step(jm, jax_run["batches"][0])
+    params, opt_state, jlosses, mus = jm.params, jm.opt_state, [], []
+    for lq, gt in jax_run["batches"]:
+        params, opt_state, total, parts = step(params, opt_state, jm.vq_variables,
+                                               jnp.asarray(lq), jnp.asarray(gt))
+        jlosses.append([float(total)] + [float(p) for p in parts])
+        mus.append(jax.tree.map(np.asarray, _adam_mu(opt_state)["deformable_decoder"]))
+    jgrads = [jax.tree.map(lambda m: m / (1 - B1), mus[0]),
+              jax.tree.map(lambda m2, m1: (m2 - B1 * m1) / (1 - B1), mus[1], mus[0])]
+
+    opt = _opt()
+    opt["train"]["mixed_precision"] = True
+    model = create_model(opt, device="cpu")
+    model.load_state_dicts(convert.flax_to_torch_stage3(jax_run["net_p"]),
+                           convert.flax_to_torch_vqgan(jax_run["vq_p"]))
+    model.perceptual = PerceptualNetwork(params=convert.flax_to_torch_vgg16(jax_run["vgg_p"]))
+    packs = [w.dcn for w in model.netG.deformable_decoder.warp]
+    losses, grads, grid_gap = [], [], []
+    for lq, gt in jax_run["batches"]:
+        for pack in packs:
+            pack.audit_offsets = True
+        losses.append(list(model.optimize_parameters({"LQ": lq, "GT": gt}, None)))
+        for pack in packs:  # distance of every (bf16-computed) offset from the integer grid
+            off = pack.last_offsets.detach()
+            grid_gap.append(float((off - off.round()).abs().min()))
+            pack.audit_offsets, pack.last_offsets = False, None
+        grads.append({n: p.grad.detach().clone() for n, p in model.trainable_parameters()})
+    return {"model": model, "losses": losses, "grads": grads, "grid_gap": grid_gap,
+            "jax_losses": jlosses, "jax_grads": [_torch_named(g, jax_run["net_p"]) for g in jgrads]}
+
+
+def test_bf16_steps_match_jax_bf16_by_the_ratio_rule(jax_run, bf16_run):
+    """The port's bf16 step may be at most 1.25x as far from JAX's float32 step as
+    JAX's bf16 step is, + 1e-3 (the stage-ratio rule of PERF.md section 2): the
+    losses of each step (relative), and each trainable gradient (relative RMS,
+    pooled over the two steps at the same weights). Two bf16 runs are equally
+    right and round at other places (the port's DCN rounds its column once and
+    its weight to bf16, JAX's chain op sums the column in bf16 and keeps a
+    float32 weight; flax adds a conv bias after rounding the product), so where
+    bf16 noise dominates a gradient, one step's distances are two samples of it:
+    at this size they reach 10-60% relative RMS, and for one small tensor one
+    step's ratio alone was 1.66 with the other step's 0.8. Pooling the two steps
+    halves that spread. A gradient that vanishes in float32 (below 1e-6 of the
+    step's largest: attention key biases, a conv bias before a one-channel-a-group
+    norm) is measured in units of the step's largest gradient instead."""
+    # the precondition, as in float32: no offset near the integer grid
+    assert min(bf16_run["grid_gap"]) > 0.02, bf16_run["grid_gap"]
+    # the port returns (total, percep, l1, ssim), JAX (total, (l1, percep, ssim))
+    for k in range(2):
+        t, pc, l1, ss = bf16_run["losses"][k]
+        for got, jb, want in zip((t, l1, pc, ss), bf16_run["jax_losses"][k], jax_run["losses"][k]):
+            assert abs(got - want) <= BF16_RATIO * abs(jb - want) + BF16_SLACK * abs(want), (k, got, jb, want)
+    ref = jax_run["grads"]
+    top = max(float(np.abs(g.numpy()).max()) for g in ref[0].values())
+    assert set(bf16_run["grads"][0]) == set(ref[0])
+    for n in ref[0]:
+        f = [ref[k][n].numpy().astype(np.float64) for k in range(2)]
+        scale = np.sqrt(sum((fk ** 2).sum() for fk in f))
+        if max(np.abs(fk).max() for fk in f) <= 1e-6 * top:   # vanishes in exact arithmetic
+            scale = top * np.sqrt(sum(fk.size for fk in f))
+
+        def dist(run, n=n, f=f, scale=scale):
+            return np.sqrt(sum(((run[k][n].numpy().astype(np.float64) - f[k]) ** 2).sum()
+                               for k in range(2))) / scale
+
+        d_port, d_jax = dist(bf16_run["grads"]), dist(bf16_run["jax_grads"])
+        assert d_port <= BF16_RATIO * d_jax + BF16_SLACK, (n, d_port, d_jax)
+
+
+def test_bf16_step_keeps_float32_master_weights(bf16_run):
+    """Parameters, gradients and Adam moments float32 after the bf16 steps; the
+    convolutions compute in bf16, the flow and the VQGAN's codebook stay float32;
+    the first update is exactly zero, the second moves the weights."""
+    model = bf16_run["model"]
+    assert model.dtype == torch.bfloat16 and model.updates == 2
+    assert all(p.dtype == torch.float32 for p in model.netG.parameters())
+    for _, p in model.trainable_parameters():
+        assert p.grad.dtype == torch.float32
+        state = model.optimizer.state[p]
+        assert state["exp_avg"].dtype == state["exp_avg_sq"].dtype == torch.float32
+    dec, enc = model.netG.deformable_decoder, model.netG.RRDB
+    assert dec.conv_in.dtype == enc.color_conv.dtype == torch.bfloat16
+    assert dec.conv_in.weight.dtype == torch.float32
+    assert model.net_hq.quantize.embedding.weight.dtype == torch.float32
+    assert all(not isinstance(m, torch.nn.Conv2d) or m.weight.dtype == torch.float32
+               for m in model.netG.flowUpsamplerNet.modules())
+    assert bf16_run["losses"][1][0] != bf16_run["losses"][0][0]
+    sd = model.netG.state_dict()
+    assert all(v.dtype == torch.float32 for v in sd.values() if v.is_floating_point())
 
 
 @pytest.mark.parametrize("conf", [
