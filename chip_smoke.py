@@ -6,10 +6,11 @@
 Phases, each printing one JSON line:
   device     the card (nvidia-smi name + power limit), torch / CUDA versions
   build      compiles the six csrc/*.cu with nvcc (one process per source, all
-             started together) and loads them; ptxas registers and spills of
-             vq_argmin.cu, attn_fused.cu, dcn_bwd.cu and of the two Hopper
-             sources (attn_hopper.cu, dcn_hopper.cu), with their shared memory: a
-             spill, or warning C7515 (a serialized wgmma pipeline), fails the run
+             started together; dcn_fwd.cu and dcn_bwd.cu include csrc/dcn_tap.cuh)
+             and loads them; ptxas registers and spills of vq_argmin.cu,
+             attn_fused.cu, dcn_fwd.cu, dcn_bwd.cu and of the two Hopper sources
+             (attn_hopper.cu, dcn_hopper.cu), with their shared memory: a spill,
+             or warning C7515 (a serialized wgmma pipeline), fails the run
   kernels    every hand-written kernel entry against its plain PyTorch version on
              the card, at the shapes the main path gives it and at small ragged
              shapes; times by CUDA events (median after a warm-up). Attention:
@@ -18,17 +19,23 @@ Phases, each printing one JSON line:
              timed at the main shape (f32 also at two ragged shapes: n and
              n_true not multiples of its 64-query tile, and C % 4 != 0), and
              SDPA under each backend as the yardstick. DCN: the entry ops.dcn.route picks (hopper for the
-             paths' bf16 widths, the first kernel's wmma / f32 otherwise), the
-             Hopper entry's edges (ragged tiles, B = 2, borders, corners outside
-             the halo, mask 0 / 1), the first kernel timed at the paths' shapes;
-             the cascade with its selection kernel, which must agree with the
-             plain selection exactly. The DCN backward (csrc/dcn_bwd.cu) against
+             paths' bf16 widths, f32 -- the tiled float32 kernel -- for float32
+             inside its envelope, the first kernel's wmma / f32_flat otherwise),
+             the Hopper entry's edges (ragged tiles, B = 2, borders, corners
+             outside the halo, mask 0 / 1), the first kernel timed at the paths'
+             shapes; the cascade with its selection kernel, which must agree
+             with the plain selection exactly. The DCN backward (csrc/dcn_bwd.cu:
+             grad_col product, one gather pass, grad_weight product) against
              autograd of the plain version at the two training shapes (offsets
-             beyond the clamp, exactly 0, and grad_x), and the float32 forward
-             entry there; its bf16 entries there by the stage-ratio rule against
-             the float32 plain backward (chunked, with grad_x), their column bit
-             for bit against the Hopper forward's A block, and the Hopper
-             forward at the training shapes
+             beyond the clamp, exactly 0, and grad_x), the gather pass against
+             its plain version, its float32 column bit for bit against what the
+             f32 forward multiplies, and the f32 forward there beside the first
+             float32 kernel (f32_flat); its bf16 entry there by the stage-ratio
+             rule against the float32 plain backward (chunked, with grad_x), its
+             column bit for bit against the Hopper forward's A block, and the
+             Hopper forward at the training shapes. Both backward rows also time
+             the first backward design (three kernels, built from the source
+             text kept in glare_tpu_torch/tools/dcn_train_designs.py)
   main_path  stage-3 paired inference at the full width of confs/LOL.yml
              (bf16, 620x420, dcn_impl pallas / clamp 2, seeded random weights):
              two single-image requests and one batch of two through
@@ -45,12 +52,13 @@ Phases, each printing one JSON line:
   train_path  stage-3 training at the full width of confs/train_stage3_LOL.yml
              (float32, dcn_impl chain, 256 crop, batch 2, seeded weights,
              synthetic pairs): a warm-up step and three timed steps of
-             VQLLFLOWDModel.optimize_parameters, each through the f32 DCN forward,
-             dcn_bwd and vq_argmin and no plain version; frozen modules bit-equal;
+             VQLLFLOWDModel.optimize_parameters, each through the f32 DCN forward
+             (the tiled kernel), the backward's gather pass (dcn_bwd) and
+             vq_argmin and no plain version; frozen modules bit-equal;
              one step's loss and gradients against the plain versions' autograd
   train_path_bf16  the same with train.mixed_precision (bf16 compute, float32
              master weights and Adam moments): each step through the Hopper DCN
-             forward, the bf16 DCN backward and vq_argmin; one step through the
+             forward, the bf16 gather pass and vq_argmin; one step through the
              kernels and through the plain versions, both held to a float32
              plain step on the same weights and batch by the stage-ratio rule
 Every path is driven with the launch counts (attention and DCN: one per entry,
@@ -173,7 +181,8 @@ def phase_build():
         regs[name] = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln][:16]
     reports = {"vq_argmin": {"layout": vq_ops.layout(8192, 3)},
                "attn_hopper": {"smem_bytes": attn_ops.hopper_smem_bytes()},
-               "attn_fused": {}, "dcn_bwd": {},
+               "attn_fused": {}, "dcn_fwd": {"f32_smem_bytes": {O: dcn_ops.f32_smem_bytes(O) for O in dcn_ops.F32_O}},
+               "dcn_bwd": {},
                "dcn_hopper": {"smem_bytes": {O: dcn_ops.hopper_smem_bytes(O) for O in (128, 256)}}}
     for name, rep in reports.items():
         log = _build.build_log.get(name)
@@ -546,8 +555,16 @@ def _library_dcn(x, off, mask, wgt, bias, max_offset):
     return {"dtype": None, "ms": None, "got": None, "refused": refused}
 
 
-DCN_ENTRY_KEY = {"hopper": "dcn_hopper", "wmma": "dcn_fwd", "f32": "dcn_fwd_f32"}
-CASCADE_ENTRY_KEY = {"hopper": "dcn_hopper_cascade", "wmma": "dcn_cascade_fwd", "f32": "dcn_cascade_fwd"}
+DCN_ENTRY_KEY = {"hopper": "dcn_hopper", "wmma": "dcn_fwd", "f32": "dcn_fwd_f32", "f32_flat": "dcn_fwd"}
+CASCADE_ENTRY_KEY = {"hopper": "dcn_hopper_cascade", "wmma": "dcn_cascade_fwd", "f32": "dcn_cascade_fwd",
+                     "f32_flat": "dcn_cascade_fwd"}
+
+
+def _want_entry(dt, C, G, O):
+    """The entry the routing rule gives (ops.dcn.route, restated here)."""
+    if dt == torch.float32:
+        return "f32" if C % 16 == 0 and (C // G) % 8 == 0 and O in (64, 128, 256) else "f32_flat"
+    return "hopper" if C % 64 == 0 and (C // G) % 32 == 0 and O in (128, 256) else "wmma"
 
 
 def check_dcn():
@@ -558,7 +575,8 @@ def check_dcn():
     multiples of the 8 x 16 tile, B = 2, offsets out of the image at every
     border, corners outside the halo (exact +-6 px, per-tap radii up to 4),
     mask 0 and 1, Cg 128 / 64 / 32. The `pallas` counter (taps beyond the
-    clamp) equals the plain version's exactly. -> (Hopper row, first-kernel row)."""
+    clamp) equals the plain version's exactly. -> (Hopper row, first-kernel row,
+    the cases of the tiled float32 entry)."""
     rng = np.random.default_rng(2)
     per_tap = tuple(tuple(int(r) for r in row) for row in rng.integers(1, 5, (4, 9)))
     cases, timed = {}, {}
@@ -575,6 +593,7 @@ def check_dcn():
         ("warp_1 f32 clamp2", 1, H1, W1, 128, 4, 128, torch.float32, 3.0, 2, False, None),
         ("ragged f32 exact", 2, 13, 17, 24, 4, 20, torch.float32, 3.0, None, False, None),
         ("ragged f32 per-tap", 2, 13, 17, 24, 4, 20, torch.float32, 3.0, per_tap, False, None),
+        ("ragged f32 O=64 Cg 8 clamp2", 2, 13, 17, 32, 4, 64, torch.float32, 3.0, 2, False, None),
         ("small bf16 clamp2", 2, 13, 17, 32, 4, 48, torch.bfloat16, 3.0, 2, False, None),
         ("small bf16 Cg=4 exact", 1, 9, 70, 16, 4, 16, torch.bfloat16, 3.0, None, False, None),
         ("edge 13x17 C=O=256 clamp2", 1, 13, 17, 256, 4, 256, torch.bfloat16, 1.5, 2, True, None),
@@ -588,9 +607,7 @@ def check_dcn():
     for (tag, B, H, W, C, G, O, dt, spread, mo, edges, timed_as) in plan:
         x, off, mask, wgt, bias = _dcn_inputs(rng, B, H, W, C, G, O, dt, spread, edges)
         entry = dcn_ops.route(x, off, wgt)
-        require(entry == ("f32" if dt == torch.float32 else
-                          "hopper" if C % 64 == 0 and (C // G) % 32 == 0 and O in (128, 256) else "wmma"),
-                f"dcn {tag}: routed to {entry}")
+        require(entry == _want_entry(dt, C, G, O), f"dcn {tag}: routed to {entry}")
         before = counters()
         got, ov = dcn_ops.modulated_deform_conv_cuda(x, off, mask, wgt, bias, max_offset=mo,
                                                      return_overflow=True)
@@ -660,10 +677,10 @@ def check_dcn():
              "tol": "bf16: 2^-7 * max(1, max|ref|); f32: 2e-4",
              "ms": mean("wmma_ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"), "bound_by": by,
              "library_ms": lib_ms, **lib_call,
-             "note": note + "; the first kernel (entries wmma and f32), timed at the paths' shapes through "
-                            "entry='wmma'; the paths launch it for no call",
-             "cases": {k: c for k, c in cases.items() if c["entry"] != "hopper"}}
-    return hopper, first
+             "note": note + "; the first kernel (entries wmma and f32_flat), timed at the paths' shapes "
+                            "through entry='wmma'; the paths launch it for no call",
+             "cases": {k: c for k, c in cases.items() if c["entry"] in ("wmma", "f32_flat")}}
+    return hopper, first, {k: c for k, c in cases.items() if c["entry"] == "f32"}
 
 
 def _has_torchvision():
@@ -753,8 +770,9 @@ def check_dcn_cascade():
     shapes the hybrid path gives it, bf16 and float32, R=2, R_tail=8, capacity
     0.125; and on the Hopper entry's edges: R_tail 16 (corners far outside the
     halo), B = 2, H and W off the tile, offsets out of the image at every
-    border, mask 0 and 1. The first kernel's bf16 cascade (entry wmma) is held
-    to the same checks on the same inputs at both shapes. Outputs within
+    border, mask 0 and 1. The first kernel's cascades (entries wmma and
+    f32_flat) are held to the same checks on the same inputs at both shapes;
+    float32 routes to the tiled kernel's cascade (entry f32). Outputs within
     check_dcn's tolerance, the selection kernel's row radii and both counters
     exact. -> (Hopper cascade row, selection-kernel row, first-kernel cascade row)."""
     rng = np.random.default_rng(4)
@@ -769,8 +787,10 @@ def check_dcn_cascade():
                 off = _cascade_offsets(rng, field, B, H, W, G)
                 a = (x, off, mask, wgt, bias)
                 got, rr = _check_cascade_case(tag, a, kw, field, cases)
-                if dt == torch.bfloat16:   # the first kernel's bf16 cascade on the same inputs
+                if dt == torch.bfloat16:   # the first kernel's cascade on the same inputs
                     _check_cascade_case(f"{tag} [wmma]", a, kw, field, cases, entry="wmma")
+                else:
+                    _check_cascade_case(f"{tag} [f32_flat]", a, kw, field, cases, entry="f32_flat")
                 if dt == torch.bfloat16 and field == "bands":
                     ms = time_ms(lambda: dcn_ops.modulated_deform_conv_cascade_cuda(
                         *a, return_overflow=True, **kw), reps=10)
@@ -837,14 +857,14 @@ def check_dcn_cascade():
                       "selection it replaces; bound: offset read once, the row table written once"}
     first = {"name": "dcn_cascade_fwd", "route": "cuda", "source": "glare_tpu_torch/csrc/dcn_fwd.cu",
              "replaces": "glare_tpu/ops/dcn_pallas.py:448", "max_abs_err": max(t["wmma_max_abs_err"] for t in main),
-             "f32_max_abs_err": max(c["max_abs_err"] for c in cases.values() if c["entry"] == "f32"),
+             "f32_max_abs_err": max(c["max_abs_err"] for c in cases.values() if c["entry"].startswith("f32")),
              "tol": "bf16: 2^-7 * max(1, max|ref|); f32: 2e-4; both overflow counters exact",
              "ms": mean("wmma_wrapper_ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
              "bound_by": by, "library_ms": None,
-             "note": "the first kernel's cascade entry (wmma for bf16, f32): ms is the wrapper with "
-                     "entry='wmma' at the paths' bf16 shapes, max_abs_err its error there (bands); its "
-                     "bf16 cases (bands, wide, beyond) and float32 cases are all checked; the paths "
-                     "launch it for no call",
+             "note": "the cascade entries of csrc/dcn_fwd.cu (wmma for bf16; f32, the tiled float32 "
+                     "kernel, and f32_flat, the first one): ms is the wrapper with entry='wmma' at the "
+                     "paths' bf16 shapes, max_abs_err its error there (bands); its bf16 cases (bands, "
+                     "wide, beyond) and float32 cases are all checked; the paths launch it for no call",
              "cases": {k: c for k, c in cases.items() if c["entry"] != "hopper"}}
     return cascade, select, first
 
@@ -877,54 +897,128 @@ def _bwd_bound(B, H, W, C, G, O, need_x=False, es=4, round_trips=False):
     return bound(2 * 2.0 * P * 9 * C * O, PEAK_F32 if es == 4 else PEAK_BF16, nbytes)
 
 
+def _old_backward_lib():
+    """The first backward design (three kernels: im2col, coord, input), built
+    from the source text kept in glare_tpu_torch/tools/dcn_train_designs.py;
+    timed beside the shipped design, launched by no path."""
+    global _OLD_BWD
+    if _OLD_BWD is None:
+        from glare_tpu_torch.tools import dcn_train_designs
+        _OLD_BWD = (dcn_train_designs, dcn_train_designs.build_old_backward())
+    return _OLD_BWD
+
+
+_OLD_BWD = None
+
+
 def _bwd_parts_ms(go, x, off, mask, wgt):
-    """The backward's steps timed alone at the radius-2 table, in x's type: the
-    masked column, the two products, the coordinate kernel and the scatter kernel."""
+    """At the radius-2 table, in x's type: the shipped backward's steps timed alone
+    (the grad_col product, the gather pass, the grad_weight product), and the
+    whole of the shipped backward and of the first design in turns (new, old,
+    old, new), with the first design's steps."""
     B, H, W, C = x.shape
     G, O = off.shape[3], wgt.shape[-1]
-    lib = dcn_ops._bwd_kernels()
-    sfx = "" if x.dtype == torch.float32 else "_bf16"
-    im2col, coord, scatter = (getattr(lib, f"dcn_bwd_{k}{sfx}") for k in ("im2col", "coord", "input"))
     radii = dcn_ops.clamp_table(2, G).to(DEV).contiguous()
-    col = torch.empty((B * H * W, 9 * C), device=DEV, dtype=x.dtype)
-    gcol = torch.empty_like(col)
-    goff, gmask = torch.empty_like(off), torch.empty_like(mask)
-    gx = torch.zeros(x.shape, device=DEV)
     go2, w2 = go.reshape(-1, O), wgt.reshape(9 * C, O).to(x.dtype)
+    gcol = go2 @ w2.t()
+    col = torch.empty_like(gcol)
+    goff, gmask = torch.empty_like(off), torch.empty_like(mask)
     gw = torch.zeros((9 * C, O), device=DEV)
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    a = (B, H, W, C, G)
     if x.dtype == torch.float32:
-        products = lambda: (gw.addmm_(col.t(), go2), torch.matmul(go2, w2.t(), out=gcol))  # noqa: E731
+        gw_product = lambda: gw.addmm_(col.t(), go2)  # noqa: E731
     else:
-        products = lambda: (gw.add_(torch.mm(col.t(), go2, out_dtype=torch.float32)),  # noqa: E731
-                            torch.matmul(go2, w2.t(), out=gcol))
-    out = {
-        "im2col_ms": time_ms(lambda: im2col(x.data_ptr(), off.data_ptr(), mask.data_ptr(),
-                                            radii.data_ptr(), col.data_ptr(), *a, stream())),
-        "products_ms": time_ms(products),
-        "coord_ms": time_ms(lambda: coord(x.data_ptr(), off.data_ptr(), mask.data_ptr(),
-                                          radii.data_ptr(), gcol.data_ptr(), goff.data_ptr(),
-                                          gmask.data_ptr(), *a, stream())),
-        "input_ms": time_ms(lambda: scatter(off.data_ptr(), mask.data_ptr(), radii.data_ptr(),
-                                            gcol.data_ptr(), gx.data_ptr(), *a, stream())),
-    }
-    del col, gcol, goff, gmask, gx, gw
+        gw_product = lambda: gw.add_(torch.mm(col.t(), go2, out_dtype=torch.float32))  # noqa: E731
+    out = {"grad_col_product_ms": time_ms(lambda: torch.matmul(go2, w2.t(), out=gcol)),
+           "pass_ms": time_ms(lambda: dcn_ops.dcn_backward_pass_cuda(x, off, mask, radii, gcol, goff, gmask)),
+           "grad_weight_product_ms": time_ms(gw_product)}
+    del col, gcol, goff, gmask, gw
+    tool, lib = _old_backward_lib()
+    steps = {}
+    got = [g.clone() for g in tool.old_backward(lib, go, x, off, mask, wgt, radii, parts=steps)]  # steps re-add
+    new = lambda: dcn_ops.modulated_deform_conv_backward_cuda(go, x, off, mask, wgt, max_offset=radii)  # noqa: E731
+    old = lambda: tool.old_backward(lib, go, x, off, mask, wgt, radii)  # noqa: E731
+    turns = [time_ms(f) for f in (new, old, old, new)]
+    out.update(ms_turns=[turns[0], turns[3]], old_design_ms_turns=[turns[1], turns[2]],
+               old_design_ms=(turns[1] + turns[2]) / 2,
+               old_design_parts_ms={k: time_ms(f) for k, f in steps.items()})
     torch.cuda.empty_cache()
-    return out
+    return out, got
+
+
+def _pass_vs_plain(go, x, off, mask, wgt, need_x):
+    """The gather pass alone against its plain version (dcn_backward_pass_ref) on
+    the same grad_col, the plain version run in float32 on the same values (in
+    bf16 the kernel computes in float32 from bf16 inputs, as it does): every
+    output within BWD_TOL of its largest, but the bf16 column, which may differ
+    by its one rounding to bf16 (2^-7 of the largest). -> {output: relative error}."""
+    B, H, W, C = x.shape
+    G, O = off.shape[3], wgt.shape[-1]
+    radii = dcn_ops.clamp_table(2, G).to(DEV).contiguous()
+    gcol = go.reshape(-1, O) @ wgt.reshape(9 * C, O).to(x.dtype).t()
+    goff, gmask = torch.empty_like(off), torch.empty_like(mask)
+    gx = torch.zeros(x.shape, device=DEV) if need_x else None
+    before = counters()
+    col = dcn_ops.dcn_backward_pass_cuda(x, off, mask, radii, gcol, goff, gmask, gx)
+    torch.cuda.synchronize()
+    require(moved_since(before) == {**{k: 0 for k in before},
+                                    "dcn_bwd" if x.dtype == torch.float32 else "dcn_bwd_bf16": 1},
+            f"pass: counters {moved_since(before)}")
+    want = dcn_ops.dcn_backward_pass_ref(x.float(), off, mask, gcol.float(), radii, need_x=need_x)
+    rel = lambda g, w: float((g.float() - w.float()).abs().max()) / max(float(w.float().abs().max()), 1e-30)  # noqa: E731
+    errs = {"col": rel(col, want[0]), "grad_offset": rel(goff, want[1]), "grad_mask": rel(gmask, want[2])}
+    if need_x:
+        errs["grad_x"] = rel(gx, want[3])
+    for name, e in errs.items():
+        tol = 2.0 ** -7 if name == "col" and x.dtype == torch.bfloat16 else BWD_TOL
+        require(e <= tol, f"pass {name}: {e} from its plain version")
+    del col, gcol, goff, gmask, gx, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _ragged_pass_inputs(rng, dt):
+    """(grad_out, x, offset, mask, weight) at 13 x 17, C 24, G 4 (Cg 6: no whole
+    16-byte vectors, the pass's scalar instantiation), offsets of 3 px spread."""
+    x, off, mask, wgt, _ = _dcn_inputs(rng, 2, 13, 17, 24, 4, 20, dt, 3.0)
+    return dev(rng.standard_normal((2, 13, 17, 20)).astype(np.float32), dt), x, off, mask, wgt
+
+
+def _column_is_forwards(x, off, mask, radii):
+    """The gather pass's masked column against the forward that ran, bit for bit:
+    bf16 against the Hopper forward's A block, float32 against what the tiled
+    float32 forward multiplies. A one-hot weight routes O of the 9C column rows
+    to the O outputs (one product by 1 in the float32 accumulator, no bias, so
+    the output is the column value itself). -> number of differing values (0)."""
+    B, H, W, C = x.shape
+    G, O = off.shape[3], (256 if C == 256 else 128)
+    gcol = torch.zeros((B * H * W, 9 * C), dtype=x.dtype, device=DEV)
+    col = dcn_ops.dcn_backward_pass_cuda(x, off, mask, radii, gcol, torch.empty_like(off), torch.empty_like(mask))
+    differ, eye = 0, torch.arange(O, device=DEV)
+    for r0 in range(0, 9 * C, O):
+        w = torch.zeros((9 * C, O), device=DEV)
+        w[r0 + eye, eye] = 1.0
+        y = dcn_ops.modulated_deform_conv_cuda(x, off, mask, w.reshape(3, 3, C, O), None, max_offset=radii)
+        differ += int((y.reshape(-1, O) != col[:, r0:r0 + O]).sum())
+    del col, gcol
+    return differ
 
 
 def check_dcn_bwd():
-    """The DCN backward (csrc/dcn_bwd.cu through modulated_deform_conv_backward_cuda)
-    against autograd of modulated_deform_conv_ref on the card, at the two training
-    shapes, float32, clamp radius 2: offsets of 1.5 px spread (about 18% of the
-    components beyond 2, whose gradient must be exactly 0), offsets exactly 0 (the
-    zero-initialised step: the floor-based derivative at integer positions), once
-    with grad_x (dcn_bwd_input), and once at warp_1 in two chunks of one image
+    """The DCN backward (modulated_deform_conv_backward_cuda: the grad_col product,
+    the gather pass of csrc/dcn_bwd.cu, the grad_weight product) against autograd
+    of modulated_deform_conv_ref on the card, at the two training shapes,
+    float32, clamp radius 2: offsets of 1.5 px spread (about 18% of the
+    components beyond 2, whose gradient must be exactly 0), offsets exactly 0
+    (the zero-initialised step: the floor-based derivative at integer
+    positions), once with grad_x, and once at warp_1 in two chunks of one image
     (BWD_CHUNK_BYTES lowered for that call: the row and batch slices and the
-    grad_weight sum over chunks), with grad_x. Every output within BWD_TOL. Also the float32
-    forward entry (csrc/dcn_fwd.cu, entry f32) at the same shapes, which the training
-    path launches. -> (backward row, float32 forward row)."""
+    grad_weight sum over chunks), with grad_x. Every output within BWD_TOL;
+    exactly one pass launch per chunk. The pass alone against its plain version,
+    and its column bit for bit against what the tiled float32 forward
+    multiplies. Also the float32 forward (entry f32, csrc/dcn_fwd.cu's tiled
+    kernel) at the same shapes, which the training path launches, beside the
+    first float32 kernel (entry f32_flat) in the same call; and the first
+    backward design (three kernels). -> (backward row, float32 forward row)."""
     require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for float32 products")
     rng = np.random.default_rng(6)
     cases, timed, fwd = {}, {}, {}
@@ -950,8 +1044,7 @@ def check_dcn_bwd():
             require(moved_since(before) == {**{k: 0 for k in before}, "dcn_bwd": chunks},
                     f"dcn_bwd {tag}: counters {moved_since(before)}")
             moved_e = bwd_moved_since(by_entry)
-            require(moved_e == {**{k: 0 for k in by_entry}, "im2col": chunks, "coord": chunks,
-                                "input": chunks * need_x},
+            require(moved_e == {**{k: 0 for k in by_entry}, "pass_x" if need_x else "pass": chunks},
                     f"dcn_bwd {tag}: kernel launches {moved_e}")
             want = dcn_ops.modulated_deform_conv_backward_ref(go, x, o, mask, wgt, bias, max_offset=2,
                                                               need_x=need_x)
@@ -972,10 +1065,17 @@ def check_dcn_bwd():
                           "components_beyond_2px": float(beyond.float().mean()), "outputs": errs}
             del got, want
             torch.cuda.empty_cache()
-        # times at the 'spread' inputs: the whole backward, its steps, and autograd of
-        # the plain version (its backward alone, the graph built once)
+        pass_errs = _pass_vs_plain(go, x, off, mask, wgt, need_x=wname == "warp_0")
+        if wname == "warp_0":   # Cg 6: the pass's scalar instantiation
+            pass_errs["ragged Cg 6"] = _pass_vs_plain(*_ragged_pass_inputs(rng, torch.float32), need_x=True)
+        # times at the 'spread' inputs: the whole backward, its steps, the first design,
+        # and autograd of the plain version (its backward alone, the graph built once)
         ms = time_ms(lambda: dcn_ops.modulated_deform_conv_backward_cuda(go, x, off, mask, wgt, max_offset=2))
-        parts = _bwd_parts_ms(go, x, off, mask, wgt)
+        parts, old_got = _bwd_parts_ms(go, x, off, mask, wgt)
+        want = dcn_ops.modulated_deform_conv_backward_ref(go, x, off, mask, wgt, bias, max_offset=2)
+        old_errs = [float((g - w).abs().max()) / float(w.abs().max()) for g, w in zip(old_got, want[1:4])]
+        require(max(old_errs) <= BWD_TOL, f"dcn_bwd {wname}: the first design's errors {old_errs}")
+        del want, old_got
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(True) for t in (x, off, mask, wgt, bias)]
             out = dcn_ops.modulated_deform_conv_ref(*leaves, max_offset=2)
@@ -986,10 +1086,12 @@ def check_dcn_bwd():
         b_ms, b_by = _bwd_bound(B, H, W, C, G, O)
         timed[wname] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, **parts,
                         "achieved_tflops": 4.0 * B * H * W * 9 * C * O / ms / 1e9,
+                        "pass_vs_plain_rel": pass_errs, "old_design_rel_err": old_errs,
                         "max_rel_err": max(e["rel"] for c in cases.values() if c["shape"][2] == W
                                            for e in c["outputs"].values())}
         # the float32 forward entry the training path launches, at the same inputs
         require(dcn_ops.route(x, off, wgt) == "f32", f"forward {wname}: not on the f32 entry")
+        radii = dcn_ops.clamp_table(2, G).to(DEV)
         before = counters()
         y = dcn_ops.modulated_deform_conv_cuda(x, off, mask, wgt, bias, max_offset=2)
         torch.cuda.synchronize()
@@ -997,15 +1099,29 @@ def check_dcn_bwd():
                 f"forward {wname}: counters {moved_since(before)}")
         y_ref = dcn_ops.modulated_deform_conv_ref(x, off, mask, wgt, bias, max_offset=2)
         err = float((y - y_ref).abs().max())
-        require(err <= _dcn_tol(torch.float32, y_ref), f"forward f32 {wname}: {err}")
+        tol = _dcn_tol(torch.float32, y_ref)
+        require(err <= tol, f"forward f32 {wname}: {err}")
+        y_flat = dcn_ops.modulated_deform_conv_cuda(x, off, mask, wgt, bias, max_offset=radii, entry="f32_flat")
+        err_flat = float((y_flat - y_ref).abs().max())
+        require(err_flat <= tol, f"forward f32_flat {wname}: {err_flat}")
+        differ = _column_is_forwards(x, off, mask, radii)
+        require(differ == 0, f"{wname}: {differ} values of the float32 column differ from what the f32 "
+                             "forward multiplies")
         fb_ms, fb_by = _dcn_bound(B, H, W, C, G, O, 4)
-        f_ms = time_ms(lambda: dcn_ops.modulated_deform_conv_cuda(x, off, mask, wgt, bias, max_offset=2))
-        fwd[wname] = {"ms": f_ms, "max_abs_err": err, "tol": _dcn_tol(torch.float32, y_ref),
+        new = lambda: dcn_ops.modulated_deform_conv_cuda(x, off, mask, wgt, bias, max_offset=radii)  # noqa: E731
+        flat = lambda: dcn_ops.modulated_deform_conv_cuda(  # noqa: E731
+            x, off, mask, wgt, bias, max_offset=radii, entry="f32_flat")
+        turns = [time_ms(f) for f in (new, flat, flat, new)]
+        f_ms = (turns[0] + turns[3]) / 2
+        fwd[wname] = {"ms": f_ms, "ms_turns": [turns[0], turns[3]], "max_abs_err": err, "tol": tol,
+                      "old_design_ms": (turns[1] + turns[2]) / 2, "old_design_ms_turns": [turns[1], turns[2]],
+                      "old_design_max_abs_err": err_flat, "column_values_off_the_backward": differ,
                       "plain_ms": time_ms(lambda: dcn_ops.modulated_deform_conv_ref(
                           x, off, mask, wgt, bias, max_offset=2), reps=3, warmup=1),
                       "bound_ms": fb_ms, "bound_by": fb_by,
-                      "achieved_tflops": 2.0 * B * H * W * 9 * C * O / f_ms / 1e9}
-        del x, off, mask, wgt, bias, go, y, y_ref
+                      "achieved_tflops": 2.0 * B * H * W * 9 * C * O / f_ms / 1e9,
+                      "old_design_achieved_tflops": 2.0 * B * H * W * 9 * C * O / ((turns[1] + turns[2]) / 2) / 1e9}
+        del x, off, mask, wgt, bias, go, y, y_ref, y_flat
         torch.cuda.empty_cache()
     mean = lambda t, key: sum(v[key] for v in t.values()) / len(t)  # noqa: E731
     note = ("mean per launch over the two shapes one training step gives it (warp_0 x [2,128,128,256] -> 256, "
@@ -1017,40 +1133,21 @@ def check_dcn_bwd():
            "tol": f"per output max|kernel - plain| <= {BWD_TOL} * max|plain|; zero beyond the clamp",
            "ms": mean(timed, "ms"), "plain_ms": mean(timed, "plain_ms"), "bound_ms": mean(timed, "bound_ms"),
            "bound_by": "operations" if all(t["bound_by"] == "operations" for t in timed.values()) else "bytes",
-           "library_ms": None,
-           "note": "ms: the whole backward (dcn_bwd_im2col, the two float32 products, dcn_bwd_coord; "
-                   "no grad_x); plain_ms: autograd of modulated_deform_conv_ref, its backward alone; " + note,
+           "library_ms": None, "old_design_ms": mean(timed, "old_design_ms"),
+           "note": "ms: the whole backward (the grad_col product, the gather pass dcn_bwd_pass, the grad_weight "
+                   "product; no grad_x); old_design_ms: the first design (im2col, two products, coord) in "
+                   "turns with it; plain_ms: autograd of modulated_deform_conv_ref, its backward alone; " + note,
            "by_shape": timed, "cases": cases}
     f32 = {"name": "dcn_fwd_f32", "route": "cuda", "source": "glare_tpu_torch/csrc/dcn_fwd.cu",
            "replaces": "glare_tpu/ops/dcn_pallas.py:55",
            "max_abs_err": max(t["max_abs_err"] for t in fwd.values()), "tol": "f32: 2e-4",
            "ms": mean(fwd, "ms"), "plain_ms": mean(fwd, "plain_ms"), "bound_ms": mean(fwd, "bound_ms"),
            "bound_by": "operations" if all(t["bound_by"] == "operations" for t in fwd.values()) else "bytes",
-           "library_ms": None, "note": "the first kernel's float32 entry, the training path's forward; " + note,
+           "library_ms": None, "old_design_ms": mean(fwd, "old_design_ms"),
+           "note": "the tiled float32 kernel (entry f32), the training path's forward; old_design_ms: the first "
+                   "float32 kernel (entry f32_flat) in turns with it; " + note,
            "by_shape": fwd}
     return bwd, f32
-
-
-def _column_is_forwards(x, off, mask, radii):
-    """The bf16 backward's masked column (dcn_bwd_im2col_bf16) against the Hopper
-    forward's A block, bit for bit: a one-hot weight routes O of the 9C column
-    rows to the O outputs (one product by 1 in the float32 accumulator, no bias,
-    so the output is the A value itself). -> number of differing values (0)."""
-    B, H, W, C = x.shape
-    G, O = off.shape[3], (256 if C == 256 else 128)
-    col = torch.empty((B * H * W, 9 * C), dtype=torch.bfloat16, device=DEV)
-    err = dcn_ops._bwd_kernels().dcn_bwd_im2col_bf16(
-        x.data_ptr(), off.data_ptr(), mask.data_ptr(), radii.data_ptr(), col.data_ptr(), B, H, W, C, G,
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "dcn_bwd_im2col_bf16")
-    differ, eye = 0, torch.arange(O, device=DEV)
-    for r0 in range(0, 9 * C, O):
-        w = torch.zeros((9 * C, O), device=DEV)
-        w[r0 + eye, eye] = 1.0
-        y = dcn_ops.modulated_deform_conv_cuda(x, off, mask, w.reshape(3, 3, C, O), None, max_offset=radii)
-        differ += int((y.reshape(-1, O) != col[:, r0:r0 + O]).sum())
-    del col
-    return differ
 
 
 def _dcn_library_note():
@@ -1061,16 +1158,19 @@ def _dcn_library_note():
 
 
 def check_dcn_bwd_bf16():
-    """The bf16 entries of csrc/dcn_bwd.cu (train.mixed_precision) at the two
-    training shapes, clamp radius 2, bf16 x and grad_out, float32 offsets, mask and
-    weight: offsets of 1.5 px spread, once with grad_x (warp_0), once in two chunks
-    of one image with grad_x (warp_1). Each output three ways on the same
-    bf16-valued inputs: the kernels, the plain backward in bf16, the plain
-    backward in float32; the kernels' relative RMS distance from the float32 one
-    may be at most STAGE_RATIO x the plain bf16 one's + STAGE_ABS_SLACK (the
-    stage-ratio rule of PERF.md section 2). Exactly one launch of each bf16 entry
-    per chunk. Also the Hopper forward (entry hopper, the Function's bf16 forward)
-    at the same shapes against its plain version. -> (backward row, forward row)."""
+    """The bf16 gather pass of csrc/dcn_bwd.cu (train.mixed_precision) through
+    modulated_deform_conv_backward_cuda at the two training shapes, clamp radius
+    2, bf16 x and grad_out, float32 offsets, mask and weight: offsets of 1.5 px
+    spread, once with grad_x (warp_0), once in two chunks of one image with
+    grad_x (warp_1). Each output three ways on the same bf16-valued inputs: the
+    kernels, the plain backward in bf16, the plain backward in float32; the
+    kernels' relative RMS distance from the float32 one may be at most
+    STAGE_RATIO x the plain bf16 one's + STAGE_ABS_SLACK (the stage-ratio rule of
+    PERF.md section 2). Exactly one pass launch per chunk. The pass alone against
+    its plain version, its column bit for bit against the Hopper forward's A
+    block, and the first backward design timed in turns with it. Also the
+    Hopper forward (entry hopper, the Function's bf16 forward) at the same
+    shapes against its plain version. -> (backward row, forward row)."""
     rng = np.random.default_rng(7)
     cases, timed, fwd = {}, {}, {}
     for (wname, B, H, W, C, G, O) in TRAIN_DCN:
@@ -1093,8 +1193,7 @@ def check_dcn_bwd_bf16():
             require(moved_since(before) == {**{k: 0 for k in before}, "dcn_bwd_bf16": chunks},
                     f"dcn_bwd {tag}: counters {moved_since(before)}")
             moved_e = bwd_moved_since(by_entry)
-            require(moved_e == {**{k: 0 for k in by_entry}, "im2col_bf16": chunks, "coord_bf16": chunks,
-                                "input_bf16": chunks * need_x},
+            require(moved_e == {**{k: 0 for k in by_entry}, "pass_x_bf16" if need_x else "pass_bf16": chunks},
                     f"dcn_bwd {tag}: kernel launches {moved_e}")
             plain = dcn_ops.modulated_deform_conv_backward_ref(go, x, off, mask, wgt, bias, max_offset=2,
                                                                need_x=need_x)
@@ -1119,8 +1218,12 @@ def check_dcn_bwd_bf16():
                           "components_beyond_2px": float(beyond.float().mean()), "outputs": dists}
             del got, plain, f32
             torch.cuda.empty_cache()
+        pass_errs = _pass_vs_plain(go, x, off, mask, wgt, need_x=wname == "warp_0")
+        if wname == "warp_0":   # Cg 6: the pass's scalar instantiation
+            pass_errs["ragged Cg 6"] = _pass_vs_plain(*_ragged_pass_inputs(rng, torch.bfloat16), need_x=True)
         ms = time_ms(lambda: dcn_ops.modulated_deform_conv_backward_cuda(go, x, off, mask, wgt, max_offset=2))
-        parts = _bwd_parts_ms(go, x, off, mask, wgt)
+        parts, old_got = _bwd_parts_ms(go, x, off, mask, wgt)
+        del old_got
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(True) for t in (x, off, mask, wgt, bias)]
             out = dcn_ops.modulated_deform_conv_ref(*leaves, max_offset=2)
@@ -1132,6 +1235,7 @@ def check_dcn_bwd_bf16():
         rt_ms, rt_by = _bwd_bound(B, H, W, C, G, O, es=2, round_trips=True)
         timed[wname] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "bound_with_round_trips_ms": rt_ms, "bound_with_round_trips_by": rt_by, **parts,
+                        "pass_vs_plain_rel": pass_errs,
                         "achieved_tflops": 4.0 * B * H * W * 9 * C * O / ms / 1e9}
         # the Function's bf16 forward: the Hopper entry at the same inputs
         require(dcn_ops.route(x, off, wgt) == "hopper", f"forward {wname}: not on the hopper entry")
@@ -1174,10 +1278,13 @@ def check_dcn_bwd_bf16():
            "ms": mean(timed, "ms"), "plain_ms": mean(timed, "plain_ms"), "bound_ms": mean(timed, "bound_ms"),
            "bound_by": by(timed), "library_ms": None, "library_note": _dcn_library_note(),
            "bound_with_round_trips_ms": mean(timed, "bound_with_round_trips_ms"),
-           "note": "ms: the whole bf16 backward (dcn_bwd_im2col_bf16, the two bf16 products with float32 "
-                   "accumulation, dcn_bwd_coord_bf16; no grad_x); bound_ms: inputs read and outputs written "
-                   "once; bound_with_round_trips_ms: also the column and grad_col through device memory once "
-                   "each; max_abs_err: kernel against the plain bf16 backward; " + note,
+           "old_design_ms": mean(timed, "old_design_ms"),
+           "note": "ms: the whole bf16 backward (the bf16 grad_col product, the gather pass dcn_bwd_pass_bf16, "
+                   "the grad_weight product with float32 accumulation; no grad_x); old_design_ms: the first "
+                   "design (im2col, two products, coord) in turns with it; bound_ms: inputs read and outputs "
+                   "written once; bound_with_round_trips_ms: also the column and grad_col through device memory "
+                   "once each, the traffic of both designs; max_abs_err: kernel against the plain bf16 "
+                   "backward; " + note,
            "by_shape": timed, "cases": cases}
     hop = {"name": "dcn_hopper_train", "route": "cuda", "source": "glare_tpu_torch/csrc/dcn_hopper.cu",
            "replaces": "glare_tpu/ops/dcn_pallas.py:55",
@@ -1192,8 +1299,10 @@ def check_dcn_bwd_bf16():
 
 
 def phase_kernels():
-    ks = [check_vq(), *check_attn(), *check_dcn(), *check_dcn_cascade(), *check_dcn_bwd(),
-          *check_dcn_bwd_bf16()]
+    hopper, first, f32_cases = check_dcn()
+    bwd, f32 = check_dcn_bwd()
+    f32["cases"] = f32_cases   # the main path's float32 shapes, held in check_dcn
+    ks = [check_vq(), *check_attn(), hopper, first, *check_dcn_cascade(), bwd, f32, *check_dcn_bwd_bf16()]
     emit({"phase": "kernels", "kernels": [
         {"name": k["name"], "max_err": k["max_abs_err"], "tol": k["tol"], "kernel_ms": k["ms"],
          "plain_ms": k["plain_ms"], "library_ms": k["library_ms"],
@@ -1237,24 +1346,26 @@ def seeded_image(seed, batch=1, h=H_IN, w=W_IN):
 
 
 def counters():
-    """Launch counts by kernel row of the contract line: attention and DCN one
-    per entry (the first DCN kernel's wmma and f32 entries together)."""
+    """Launch counts by kernel row of the contract line: attention one per entry;
+    DCN: dcn_hopper, dcn_fwd_f32 (the tiled float32 entry), dcn_fwd (the first
+    kernel's entries wmma and f32_flat together), the cascade entries of
+    dcn_fwd.cu together; the backward's gather pass by type (with or without
+    grad_x)."""
     by_entry = attn_ops.launches_by_entry
     dcn, cas = dcn_ops.launches_by_entry, dcn_ops.cascade_launches_by_entry
     require(attn_ops.launches == sum(by_entry.values()), "attention counts disagree")
     require(dcn_ops.launches == sum(dcn.values()) and dcn_ops.cascade_launches == sum(cas.values()),
             "DCN counts disagree")
     bwd = dcn_ops.bwd_launches_by_entry
-    require(bwd["coord"] + bwd["coord_bf16"] == dcn_ops.bwd_launches
-            and all(bwd["im2col" + s] == bwd["coord" + s] and bwd["input" + s] <= bwd["coord" + s]
-                    for s in ("", "_bf16")),
+    require(sum(bwd.values()) == dcn_ops.bwd_launches,
             f"DCN backward counts disagree: {dcn_ops.bwd_launches} launches, by kernel {bwd}")
     return {"vq_argmin": vq_ops.launches, "attn_hopper": by_entry["hopper"],
             "attn_wmma": by_entry["wmma"], "attn_f32": by_entry["f32"],
-            "dcn_hopper": dcn["hopper"], "dcn_fwd": dcn["wmma"], "dcn_fwd_f32": dcn["f32"],
-            "dcn_hopper_cascade": cas["hopper"], "dcn_cascade_fwd": cas["wmma"] + cas["f32"],
-            "dcn_cascade_select": dcn_ops.select_launches, "dcn_bwd": bwd["coord"],
-            "dcn_bwd_bf16": bwd["coord_bf16"]}
+            "dcn_hopper": dcn["hopper"], "dcn_fwd": dcn["wmma"] + dcn["f32_flat"], "dcn_fwd_f32": dcn["f32"],
+            "dcn_hopper_cascade": cas["hopper"],
+            "dcn_cascade_fwd": cas["wmma"] + cas["f32"] + cas["f32_flat"],
+            "dcn_cascade_select": dcn_ops.select_launches, "dcn_bwd": bwd["pass"] + bwd["pass_x"],
+            "dcn_bwd_bf16": bwd["pass_bf16"] + bwd["pass_x_bf16"]}
 
 
 def reset_counters():
@@ -1279,8 +1390,8 @@ def moved_since(before):
 
 
 def bwd_moved_since(by_entry):
-    """Launches of each DCN backward kernel since ``by_entry`` (a copy of
-    dcn_ops.bwd_launches_by_entry)."""
+    """Launches of each instantiation of the DCN backward's gather pass since
+    ``by_entry`` (a copy of dcn_ops.bwd_launches_by_entry)."""
     return {e: dcn_ops.bwd_launches_by_entry[e] - by_entry[e] for e in by_entry}
 
 
@@ -1853,8 +1964,8 @@ def phase_train_path():
     batches = [train_batch(60 + i) for i in range(5)]
     spread = condition_offset_heads(model, batches[0])
     per_step = {**{k: 0 for k in counters()}, "vq_argmin": 1, "dcn_fwd_f32": 2, "dcn_bwd": 2}
-    # x of both warps is the VQ decoder's tap, under no-grad: no grad_x kernel
-    bwd_per_step = {**{k: 0 for k in dcn_ops.bwd_launches_by_entry}, "im2col": 2, "coord": 2}
+    # x of both warps is the VQ decoder's tap, under no-grad: the pass without grad_x
+    bwd_per_step = {**{k: 0 for k in dcn_ops.bwd_launches_by_entry}, "pass": 2}
     steps, path_counts, peak_mem = _train_steps(model, batches[:4], per_step, bwd_per_step)
 
     # one step's loss and gradients: kernels against the plain versions, same weights and batch
@@ -1928,7 +2039,7 @@ def phase_train_path_bf16():
     batches = [train_batch(80 + i) for i in range(5)]
     spread = condition_offset_heads(model, batches[0])
     per_step = {**{k: 0 for k in counters()}, "vq_argmin": 1, "dcn_hopper": 2, "dcn_bwd_bf16": 2}
-    bwd_per_step = {**{k: 0 for k in dcn_ops.bwd_launches_by_entry}, "im2col_bf16": 2, "coord_bf16": 2}
+    bwd_per_step = {**{k: 0 for k in dcn_ops.bwd_launches_by_entry}, "pass_bf16": 2}
     steps, path_counts, peak_mem = _train_steps(model, batches[:4], per_step, bwd_per_step)
     for n, p in model.netG.named_parameters():
         require(p.dtype == torch.float32, f"parameter {n} is {p.dtype}")
@@ -1987,8 +2098,7 @@ def _category(name):
                      ("attn_bf16_kernel", "attention (this repo)"), ("attn_f32_kernel", "attention (this repo)"),
                      ("dcn_hopper_kernel", "dcn (this repo)"), ("cascade_select_kernel", "dcn (this repo)"),
                      ("dcn_bf16_kernel", "dcn (this repo)"), ("dcn_f32_kernel", "dcn (this repo)"),
-                     ("im2col_kernel", "dcn backward (this repo)"), ("coord_kernel", "dcn backward (this repo)"),
-                     ("input_kernel", "dcn backward (this repo)"),
+                     ("dcn_f32_tiled_kernel", "dcn (this repo)"), ("pass_kernel", "dcn backward (this repo)"),
                      ("vq_argmin", "vq_argmin (this repo)"),
                      ("groupnorm", "group norm"), ("group_norm", "group norm"), ("rowwisemoments", "group norm"),
                      ("cudnn", "conv / gemm (library)"), ("conv", "conv / gemm (library)"),
@@ -2102,7 +2212,7 @@ def main():
         k["launches"] = k["launches_by_path"][path or "main_path"]
         require(path is None or k["launches"] > 0, f"kernel {k['name']} was never launched on {path}")
     extras = ("library_call", "library_note", "kernel_ms", "smem_bytes", "sdpa_by_backend",
-              "bound_with_round_trips_ms")
+              "bound_with_round_trips_ms", "old_design_ms")
     emit({"kernels": [{**{key: k[key] for key in keys}, **{key: k[key] for key in extras if key in k}}
                       for k in kernels]})
     emit({"seconds": round(time.time() - t_start, 1)})

@@ -8,7 +8,9 @@ build takes seconds) and becomes its own shared library:
 
 The first :func:`load` builds EVERY source, one ``nvcc`` process per file,
 all started together; later calls reuse the libraries. The file name
-carries a hash of the source and the flags, so an edit rebuilds. Libraries
+carries a hash of the source, of every header under ``csrc/`` (``*.cuh``,
+e.g. ``dcn_tap.cuh``, which ``dcn_fwd.cu`` and ``dcn_bwd.cu`` share) and of
+the flags, so an edit rebuilds. Libraries
 are loaded with ``ctypes``; the caller sets ``argtypes`` (``c_void_p`` for
 every pointer and for the stream).
 
@@ -65,10 +67,21 @@ def sources() -> dict:
     }
 
 
+def headers() -> list:
+    return [os.path.join(CSRC_DIR, f) for f in sorted(os.listdir(CSRC_DIR)) if f.endswith(".cuh")]
+
+
+def nvcc_command(src: str, out: str) -> list:
+    """The nvcc command that builds ``src`` (a source under ``csrc/`` or a copy
+    elsewhere that includes its headers) into the shared library ``out``."""
+    return [find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", out, src]
+
+
 def _lib_path(name: str, src: str) -> str:
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in [src, *headers()]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(build_dir(), f"{name}-{h.hexdigest()[:16]}.so")
 
@@ -81,12 +94,11 @@ def build_all() -> dict:
     todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
     if not todo:
         return paths
-    nvcc = find_nvcc()
     t0 = time.time()
     procs = {}
     for name, out in todo.items():
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, sources()[name]]
+        cmd = nvcc_command(sources()[name], tmp)
         procs[name] = (tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failures = []

@@ -18,14 +18,18 @@ zero. The contraction uses the weight flattened as ``[K, G, Cg, O] -> [9*C, O]``
 
   * :func:`modulated_deform_conv_ref` -- plain PyTorch by gathers.
   * :func:`modulated_deform_conv_cuda` -- the hand-written kernels that replace
-    the Pallas ``_kernel_core``, one of three entries chosen by :func:`route`
+    the Pallas ``_kernel_core``, one of four entries chosen by :func:`route`
     from dtype and widths before the launch: ``hopper`` (``csrc/dcn_hopper.cu``:
     2-D tiles, a TMA-staged halo, ``wgmma``, warp-specialised; bf16 inside
-    :func:`hopper_envelope`, every launch of the model's paths), ``wmma``
-    (``csrc/dcn_fwd.cu``, the first kernel: other bf16 widths) and ``f32``
-    (``csrc/dcn_fwd.cu``). Each is gather + modulation + the ``[9*C -> O]``
-    contraction in one kernel; the ``hopper`` entry also counts the taps
-    beyond their clamp radius (the ``pallas`` overflow counter).
+    :func:`hopper_envelope`, every launch of the model's serving paths),
+    ``f32`` (``csrc/dcn_fwd.cu``'s tiled float32 kernel: 8 x 16 pixel tiles,
+    register micro-tiles, cp.async weight stages; float32 inside
+    :func:`f32_envelope`, the float32 training path's forward), and the first
+    kernel's two entries in ``csrc/dcn_fwd.cu`` for the widths outside those
+    envelopes: ``wmma`` (bf16) and ``f32_flat`` (float32). Each is gather +
+    modulation + the ``[9*C -> O]`` contraction in one kernel; the ``hopper``
+    entry also counts the taps beyond their clamp radius (the ``pallas``
+    overflow counter).
   * :func:`modulated_deform_conv` -- dispatch by where the tensors lie: CUDA
     tensors launch a kernel (or raise), CPU tensors take the plain version.
     With grad enabled and an input that requires grad, a CUDA call goes
@@ -38,15 +42,18 @@ The backward (no Pallas counterpart: JAX takes it from XLA autodiff of its
     :func:`modulated_deform_conv_ref`. It is the reference CUDA extension's
     derivative (``col2im_coord``, floor-based at integer offsets), which the
     chain op's autodiff is not at exactly integer offsets.
-  * :func:`modulated_deform_conv_backward_cuda` -- ``csrc/dcn_bwd.cu``: per
-    chunk of images the masked column (``dcn_bwd_im2col``), grad_weight =
-    col^T grad_out and grad_col = grad_out W^T as two products, then
-    grad_offset / grad_mask (``dcn_bwd_coord``) and, when x needs it, grad_x
-    by an atomic scatter (``dcn_bwd_input``). grad_bias = sum grad_out. In x's
-    type: float32 (products in full float32), or bf16 (the ``_bf16`` entries;
-    the column rounded as the Hopper forward rounds its A block, grad_col
-    bf16, the products on the tensor cores with float32 accumulation,
-    grad_weight and every other gradient accumulated in float32).
+  * :func:`modulated_deform_conv_backward_cuda` -- per chunk of images
+    grad_col = grad_out W^T, ONE launch of the gather pass of
+    ``csrc/dcn_bwd.cu`` (``dcn_bwd_pass``: the masked column, grad_offset,
+    grad_mask and, when x needs it, grad_x by an atomic scatter, from one
+    geometry and one gather per (pixel, group, tap)), then grad_weight +=
+    col^T grad_out. grad_bias = sum grad_out. In x's type: float32 (products
+    in full float32), or bf16 (``dcn_bwd_pass_bf16``: the column rounded as
+    the Hopper forward rounds its A block, grad_col bf16, the products on the
+    tensor cores with float32 accumulation, grad_weight and every other
+    gradient accumulated in float32).
+  * :func:`dcn_backward_pass_ref` -- the pass's plain version: the column of
+    :func:`modulated_deform_conv_ref` and autograd of ``sum(col * grad_col)``.
   * :class:`ModulatedDeformConvFunction` -- the forward kernel :func:`route`
     picks (``f32`` for float32, ``hopper`` for bf16 at the training widths)
     with that backward; the training path's DCN on the card.
@@ -91,19 +98,21 @@ import torch
 
 from . import _build
 
-launches = 0          # +1 per launch of a DCN entry (any of the three), nowhere else
-cascade_launches = 0  # +1 per launch of a cascade entry (any of the three), nowhere else
-launches_by_entry = {"hopper": 0, "wmma": 0, "f32": 0}          # +1 per launch of that entry
-cascade_launches_by_entry = {"hopper": 0, "wmma": 0, "f32": 0}  # the same, cascade entries
+ENTRIES = ("hopper", "wmma", "f32", "f32_flat")
+launches = 0          # +1 per launch of a DCN entry (any of the four), nowhere else
+cascade_launches = 0  # +1 per launch of a cascade entry (any of the four), nowhere else
+launches_by_entry = dict.fromkeys(ENTRIES, 0)          # +1 per launch of that entry
+cascade_launches_by_entry = dict.fromkeys(ENTRIES, 0)  # the same, cascade entries
 select_launches = 0   # +1 per launch of dcn_cascade_select, nowhere else
-bwd_launches = 0      # +1 per launch of dcn_bwd_coord[_bf16] (once per chunk of a backward), nowhere else
-bwd_launches_by_entry = {"im2col": 0, "coord": 0, "input": 0,                 # float32 entries
-                         "im2col_bf16": 0, "coord_bf16": 0, "input_bf16": 0}  # +1 per launch of that kernel
+bwd_launches = 0      # +1 per launch of the gather pass (once per chunk of a backward), nowhere else
+# +1 per launch of that instantiation of the pass: float32 / bf16, without / with grad_x
+bwd_launches_by_entry = {"pass": 0, "pass_x": 0, "pass_bf16": 0, "pass_x_bf16": 0}
 
 BWD_CHUNK_BYTES = 1 << 30  # the backward's column (in x's type): at most ~1 GB per chunk of images
 
 HOPPER_O = (128, 256)  # the output widths the Hopper entry serves
 _CB = 64               # its K chunk: 64 channels of one tap
+F32_O = (64, 128, 256)  # the output widths the tiled float32 entry serves
 
 _KY = (-1, -1, -1, 0, 0, 0, 1, 1, 1)
 _KX = (-1, 0, 1, -1, 0, 1, -1, 0, 1)
@@ -150,55 +159,67 @@ def _check(x, offset, mask, weight):
     return B, H, W, C, weight.shape[3], G
 
 
+def _rows_per_chunk(B, W, C):
+    """Image rows whose gathered ``[rows, W, G, 9, Cg]`` buffers stay near 2^24 values."""
+    return max(1, (1 << 24) // max(1, B * W * 9 * C))
+
+
+def _columns(x, offset, mask, max_offset, h0, h1):
+    """The masked column of image rows ``[h0, h1)``: float32 ``[B * (h1 - h0) * W,
+    9 * C]``, row ``(b, h, w)``, column ``k*C + g*Cg + cg`` (before any rounding to
+    x's dtype). Differentiable in x, offset and mask."""
+    B, H, W, C = x.shape
+    G = offset.shape[3]
+    K, Cg, R = 9, C // G, h1 - h0
+    dev = x.device
+    r = clamp_table(max_offset, G, K).to(dev)[None, None, None, :, :, None]
+    off = torch.minimum(torch.maximum(offset[:, h0:h1].float(), -r), r)
+    ky = torch.tensor(_KY, dtype=torch.float32, device=dev)
+    kx = torch.tensor(_KX, dtype=torch.float32, device=dev)
+    xg = x.reshape(B, H * W, G, Cg).permute(0, 2, 1, 3)          # [B, G, HW, Cg]
+    ww = torch.arange(W, dtype=torch.float32, device=dev).view(1, 1, W, 1, 1)
+    hh = torch.arange(h0, h1, dtype=torch.float32, device=dev).view(1, R, 1, 1, 1)
+    py = hh + ky + off[..., 0]                                    # [B, R, W, G, K]
+    px = ww + kx + off[..., 1]
+    in_range = (py > -1.0) & (py < H) & (px > -1.0) & (px < W)
+    y0 = torch.floor(py)
+    x0 = torch.floor(px)
+    ly, lx = py - y0, px - x0
+    hy, hx = 1.0 - ly, 1.0 - lx
+
+    def corner(yi, xi, wgt):
+        valid = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W) & in_range
+        lin = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).long()
+        idx = lin.permute(0, 3, 1, 2, 4).reshape(B, G, R * W * K, 1)
+        vals = torch.gather(xg, 2, idx.expand(B, G, R * W * K, Cg)).float()
+        wv = (wgt * valid.to(wgt.dtype)).permute(0, 3, 1, 2, 4).reshape(B, G, R * W * K, 1)
+        return vals * wv
+
+    samp = corner(y0, x0, hy * hx)
+    samp = samp + corner(y0, x0 + 1, hy * lx)
+    samp = samp + corner(y0 + 1, x0, ly * hx)
+    samp = samp + corner(y0 + 1, x0 + 1, ly * lx)
+    m = mask[:, h0:h1].float().permute(0, 3, 1, 2, 4).reshape(B, G, R * W * K, 1)
+    samp = samp * m                                               # [B, G, R*W*K, Cg]
+    return samp.reshape(B, G, R * W, K, Cg).permute(0, 2, 3, 1, 4).reshape(B * R * W, K * C)
+
+
 def modulated_deform_conv_ref(x, offset, mask, weight, bias=None, max_offset=None,
                               return_overflow=False, rows_per_chunk=None):
     """Plain PyTorch DCNv2 forward; see module docstring. Output rows are
     processed in chunks to bound the gathered ``[rows, W, G, K, Cg]`` buffers.
     ``return_overflow``: also :func:`clamp_overflow`."""
     B, H, W, C, O, G = _check(x, offset, mask, weight)
-    K, Cg = 9, C // G
-    dev = x.device
-    r = clamp_table(max_offset, G, K).to(dev)[None, None, None, :, :, None]
-    off = torch.minimum(torch.maximum(offset.float(), -r), r)
-    ky = torch.tensor(_KY, dtype=torch.float32, device=dev)
-    kx = torch.tensor(_KX, dtype=torch.float32, device=dev)
-    xg = x.reshape(B, H * W, G, Cg).permute(0, 2, 1, 3)          # [B, G, HW, Cg]
-    w2 = weight.reshape(K * C, O).to(x.dtype).float()
+    w2 = weight.reshape(9 * C, O).to(x.dtype).float()
     if rows_per_chunk is None:
-        rows_per_chunk = max(1, (1 << 24) // max(1, B * W * K * C))
-    ww = torch.arange(W, dtype=torch.float32, device=dev).view(1, 1, W, 1, 1)
+        rows_per_chunk = _rows_per_chunk(B, W, C)
     outs = []
     for h0 in range(0, H, rows_per_chunk):
         h1 = min(H, h0 + rows_per_chunk)
-        R = h1 - h0
-        hh = torch.arange(h0, h1, dtype=torch.float32, device=dev).view(1, R, 1, 1, 1)
-        py = hh + ky + off[:, h0:h1, ..., 0]                       # [B, R, W, G, K]
-        px = ww + kx + off[:, h0:h1, ..., 1]
-        in_range = (py > -1.0) & (py < H) & (px > -1.0) & (px < W)
-        y0 = torch.floor(py)
-        x0 = torch.floor(px)
-        ly, lx = py - y0, px - x0
-        hy, hx = 1.0 - ly, 1.0 - lx
-
-        def corner(yi, xi, wgt):
-            valid = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W) & in_range
-            lin = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).long()
-            idx = lin.permute(0, 3, 1, 2, 4).reshape(B, G, R * W * K, 1)
-            vals = torch.gather(xg, 2, idx.expand(B, G, R * W * K, Cg)).float()
-            wv = (wgt * valid.to(wgt.dtype)).permute(0, 3, 1, 2, 4).reshape(B, G, R * W * K, 1)
-            return vals * wv
-
-        samp = corner(y0, x0, hy * hx)
-        samp = samp + corner(y0, x0 + 1, hy * lx)
-        samp = samp + corner(y0 + 1, x0, ly * hx)
-        samp = samp + corner(y0 + 1, x0 + 1, ly * lx)
-        m = mask[:, h0:h1].float().permute(0, 3, 1, 2, 4).reshape(B, G, R * W * K, 1)
-        samp = samp * m                                            # [B, G, R*W*K, Cg]
-        col = samp.reshape(B, G, R * W, K, Cg).permute(0, 2, 3, 1, 4).reshape(B * R * W, K * C)
-        o = col.to(x.dtype).float() @ w2
+        o = _columns(x, offset, mask, max_offset, h0, h1).to(x.dtype).float() @ w2
         if bias is not None:
             o = o + bias.float()
-        outs.append(o.reshape(B, R, W, O))
+        outs.append(o.reshape(B, h1 - h0, W, O))
     out = torch.cat(outs, dim=1).to(x.dtype)
     return (out, clamp_overflow(offset, max_offset)) if return_overflow else out
 
@@ -210,11 +231,24 @@ def hopper_envelope(dtype, C: int, O: int, G: int) -> bool:
         and (C // G) % 32 == 0 and O in HOPPER_O
 
 
+def f32_envelope(dtype, C: int, O: int, G: int) -> bool:
+    """Whether the tiled float32 entry takes these widths (the envelope stated in
+    ``csrc/dcn_fwd.cu``: 16-channel K chunks, 8 channels of one group a sampling
+    thread, O / 64 column quads a thread; 16-byte alignment is the wrapper's)."""
+    return dtype == torch.float32 and G >= 1 and C % G == 0 and C % 16 == 0 \
+        and (C // G) % 8 == 0 and O in F32_O
+
+
 def route(x, offset, weight) -> str:
-    """The kernel entry a CUDA call with these inputs takes."""
+    """The kernel entry a CUDA call with these inputs takes, by dtype and widths
+    alone (never by a failure): float32 inside :func:`f32_envelope` -> ``f32``,
+    other float32 widths -> ``f32_flat``; bf16 inside :func:`hopper_envelope`
+    -> ``hopper``, other bf16 widths -> ``wmma``. Inside its envelope an entry's
+    build or launch failure raises."""
+    C, O, G = x.shape[-1], weight.shape[-1], offset.shape[3]
     if x.dtype == torch.float32:
-        return "f32"
-    if hopper_envelope(x.dtype, x.shape[-1], weight.shape[-1], offset.shape[3]):
+        return "f32" if f32_envelope(x.dtype, C, O, G) else "f32_flat"
+    if hopper_envelope(x.dtype, C, O, G):
         return "hopper"
     return "wmma"
 
@@ -237,6 +271,7 @@ def _kernels():
             [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         hop.dcn_cascade_select.restype = ctypes.c_int
         hop.dcn_hopper_smem_bytes.restype = ctypes.c_int
+        old.dcn_f32_smem_bytes.restype = ctypes.c_int
         _libs = (old, hop)
     return _libs
 
@@ -244,6 +279,11 @@ def _kernels():
 def hopper_smem_bytes(O: int) -> int:
     """Dynamic shared memory a CTA of the Hopper entry asks for at O outputs."""
     return int(_kernels()[1].dcn_hopper_smem_bytes(int(O)))
+
+
+def f32_smem_bytes(O: int) -> int:
+    """Dynamic shared memory a CTA of the tiled float32 entry asks for at O outputs."""
+    return int(_kernels()[0].dcn_f32_smem_bytes(int(O)))
 
 
 def _aligned(t, n):
@@ -255,16 +295,22 @@ def _check_entry(entry, x, offset, mask, weight):
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
     B, H, W, C, O, G = _check(x, offset, mask, weight)
-    if entry not in launches_by_entry or (entry == "f32") != (x.dtype == torch.float32):
+    if entry not in ENTRIES or entry.startswith("f32") != (x.dtype == torch.float32):
         raise ValueError(f"entry {entry!r} does not take {x.dtype} inputs")
     if entry == "hopper" and not hopper_envelope(x.dtype, C, O, G):
         raise ValueError(f"the hopper entry does not take C={C}, O={O}, G={G} "
                          f"(bf16, C % 64 == 0, Cg % 32 == 0, O in {HOPPER_O})")
+    if entry == "f32" and not f32_envelope(x.dtype, C, O, G):
+        raise ValueError(f"the f32 entry does not take C={C}, O={O}, G={G} "
+                         f"(float32, C % 16 == 0, Cg % 8 == 0, O in {F32_O})")
     if O > 256:
         raise ValueError(f"O={O} not supported by the kernel (at most 256)")
     if entry == "wmma" and (C % 16 != 0 or O % 16 != 0):
         raise ValueError(f"bfloat16 needs C and O to be multiples of 16, got C={C}, O={O}")
     return B, H, W, C, O, G
+
+
+_FWD_KIND = {"f32": 0, "wmma": 1, "f32_flat": 2}  # dcn_fwd's `kind` argument per entry
 
 
 def _launch(entry, cascade, x, offset, mask, weight, bias, radii, count=None):
@@ -278,9 +324,9 @@ def _launch(entry, cascade, x, offset, mask, weight, bias, radii, count=None):
     x = _aligned(x.contiguous(), 16)      # TMA and 16-byte gathers
     offset = offset.float().contiguous()
     mask = mask.float().contiguous()
-    # TMA reads the weight at 16-byte, wmma at 32-byte alignment
+    # TMA and cp.async read the weight at 16-byte, wmma at 32-byte alignment
     w2 = _aligned(weight.reshape(9 * C, O).to(x.dtype).contiguous(), 32)
-    b = None if bias is None else bias.float().contiguous()
+    b = None if bias is None else _aligned(bias.float().contiguous(), 16)
     out = torch.empty((B, H, W, O), dtype=x.dtype, device=x.device)
     old, hop = _kernels()
     ptrs = [x.data_ptr(), offset.data_ptr(), mask.data_ptr(), w2.data_ptr(),
@@ -292,7 +338,7 @@ def _launch(entry, cascade, x, offset, mask, weight, bias, radii, count=None):
             err = fn(*ptrs, None if count is None else count.data_ptr(), B, H, W, C, O, G, stream)
         else:
             fn = old.dcn_cascade_fwd if cascade else old.dcn_fwd
-            err = fn(*ptrs, B, H, W, C, O, G, int(x.dtype == torch.bfloat16), stream)
+            err = fn(*ptrs, B, H, W, C, O, G, _FWD_KIND[entry], stream)
     _build.check(err, fn.__name__)
     return out
 
@@ -300,9 +346,9 @@ def _launch(entry, cascade, x, offset, mask, weight, bias, radii, count=None):
 def modulated_deform_conv_cuda(x, offset, mask, weight, bias=None, max_offset=None,
                                return_overflow=False, entry=None):
     """Launches the entry :func:`route` picks; ``entry`` names another one that
-    takes these inputs (the first kernel, ``wmma``, to time the two side by
-    side). ``return_overflow``: the Hopper entry counts in the kernel; the
-    others leave it to :func:`clamp_overflow`."""
+    takes these inputs (the first kernel, ``wmma`` or ``f32_flat``, to time it
+    beside the redesign). ``return_overflow``: the Hopper entry counts in the
+    kernel; the others leave it to :func:`clamp_overflow`."""
     global launches
     _build.refuse_grad("modulated_deform_conv_cuda", x, offset, mask, weight, bias)
     entry = route(x, offset, weight) if entry is None else entry
@@ -354,6 +400,23 @@ def modulated_deform_conv_backward_ref(grad_out, x, offset, mask, weight, bias=N
     return (grads[0] if need_x else None, grads[1], grads[2], grads[3], gb)
 
 
+def dcn_backward_pass_ref(x, offset, mask, grad_col, max_offset=None, need_x=False):
+    """Plain version of the backward's gather pass: from x, offset, mask, the
+    clamp radii and a given ``grad_col`` ``[B*H*W, 9*C]`` (grad_out W^T), ->
+    (col ``[B*H*W, 9*C]`` in x's type: the forward's masked column, grad_offset,
+    grad_mask (float32), grad_x in x's type or None): the column of
+    :func:`modulated_deform_conv_ref` and autograd of ``sum(col * grad_col)``."""
+    B, H, W = x.shape[:3]
+    with torch.enable_grad():
+        xl = x.detach().requires_grad_(need_x)
+        leaves = [offset.detach().float().requires_grad_(True), mask.detach().float().requires_grad_(True)]
+        rows = _rows_per_chunk(B, W, x.shape[-1])
+        col = torch.cat([_columns(xl, *leaves, max_offset, h0, min(H, h0 + rows)).reshape(B, -1, grad_col.shape[1])
+                         for h0 in range(0, H, rows)], dim=1).reshape(B * H * W, -1)
+        grads = torch.autograd.grad((col * grad_col.float()).sum(), leaves + ([xl] if need_x else []))
+    return (col.detach().to(x.dtype), grads[0], grads[1], grads[2] if need_x else None)
+
+
 _bwd_lib = None
 
 
@@ -361,78 +424,106 @@ def _bwd_kernels():
     global _bwd_lib
     if _bwd_lib is None:
         lib = _build.load("dcn_bwd")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for sfx in ("", "_bf16"):
-            getattr(lib, "dcn_bwd_im2col" + sfx).argtypes = [p] * 5 + [i] * 5 + [p]
-            getattr(lib, "dcn_bwd_coord" + sfx).argtypes = [p] * 7 + [i] * 5 + [p]
-            getattr(lib, "dcn_bwd_input" + sfx).argtypes = [p] * 5 + [i] * 5 + [p]
-            for kernel in ("im2col", "coord", "input"):
-                getattr(lib, f"dcn_bwd_{kernel}{sfx}").restype = ctypes.c_int
+        for fn in (lib.dcn_bwd_pass, lib.dcn_bwd_pass_bf16):
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _bwd_lib = lib
     return _bwd_lib
 
 
+def dcn_backward_pass_cuda(x, offset, mask, radii, grad_col, grad_offset, grad_mask, grad_x=None):
+    """One launch of the gather pass (``dcn_bwd_pass``, ``dcn_bwd_pass_bf16`` for
+    bf16 x): fills ``grad_offset`` and ``grad_mask`` (float32), adds to
+    ``grad_x`` (float32) when it is given, and returns the column (x's type,
+    like ``grad_col``). Every tensor contiguous on the card; ``radii`` the
+    [G, 9] float32 clamp table."""
+    global bwd_launches
+    B, H, W, C = x.shape
+    G = offset.shape[3]
+    _dcn_grad_dtype(x)
+    outs = [grad_offset, grad_mask] + ([] if grad_x is None else [grad_x])
+    if (tuple(grad_col.shape) != (B * H * W, 9 * C) or grad_col.dtype != x.dtype
+            or tuple(offset.shape) != (B, H, W, G, 9, 2) or tuple(mask.shape) != (B, H, W, G, 9)
+            or tuple(radii.shape) != (G, 9) or C % G != 0
+            or (grad_x is not None and tuple(grad_x.shape) != tuple(x.shape))
+            or any(t.dtype != torch.float32 for t in [offset, mask, radii] + outs)
+            or grad_offset.shape != offset.shape or grad_mask.shape != mask.shape):
+        raise ValueError("dcn_backward_pass_cuda: shapes or dtypes the pass does not take")
+    ins = [x, offset, mask, radii, grad_col] + outs
+    if not all(t.is_cuda and t.is_contiguous() for t in ins):
+        raise ValueError("dcn_backward_pass_cuda needs contiguous CUDA tensors")
+    bf = x.dtype == torch.bfloat16
+    lib = _bwd_kernels()
+    fn = lib.dcn_bwd_pass_bf16 if bf else lib.dcn_bwd_pass
+    col = torch.empty_like(grad_col)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), offset.data_ptr(), mask.data_ptr(), radii.data_ptr(), grad_col.data_ptr(),
+                 col.data_ptr(), grad_offset.data_ptr(), grad_mask.data_ptr(),
+                 None if grad_x is None else grad_x.data_ptr(), B, H, W, C, G,
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(err, fn.__name__)
+    bwd_launches += 1
+    bwd_launches_by_entry[("pass_x" if grad_x is not None else "pass") + ("_bf16" if bf else "")] += 1
+    return col
+
+
+def _bf16_mm_f32(a, b):
+    """``a @ b`` of bf16 matrices with float32 accumulation and result: one
+    tensor-core product on the card; on the CPU, which has no such call, the
+    same bf16 products (exact in float32) summed in float32."""
+    return torch.mm(a, b, out_dtype=torch.float32) if a.is_cuda else a.float() @ b.float()
+
+
+def _backward_by_pass(grad_out, x, offset, mask, weight, radii, need_x, gather_pass):
+    """The backward's chunk loop around a gather pass with the signature of
+    :func:`dcn_backward_pass_cuda`; see :func:`modulated_deform_conv_backward_cuda`.
+    ``offset`` and ``mask`` float32 and contiguous."""
+    B, H, W, C = x.shape
+    O = weight.shape[-1]
+    dt = x.dtype
+    w2 = weight.reshape(9 * C, O).to(dt).contiguous()
+    go = grad_out.to(dt).contiguous().reshape(B * H * W, O)
+    grad_offset, grad_mask = torch.empty_like(offset), torch.empty_like(mask)
+    grad_x = torch.zeros(x.shape, dtype=torch.float32, device=x.device) if need_x else None
+    grad_w2 = torch.zeros((9 * C, O), dtype=torch.float32, device=x.device)
+    per = max(1, BWD_CHUNK_BYTES // max(1, H * W * 9 * C * x.element_size()))
+    for b0 in range(0, B, per):
+        b1 = min(B, b0 + per)
+        rows = slice(b0 * H * W, b1 * H * W)
+        gcol = go[rows] @ w2.t()
+        col = gather_pass(x[b0:b1], offset[b0:b1], mask[b0:b1], radii, gcol, grad_offset[b0:b1],
+                          grad_mask[b0:b1], None if grad_x is None else grad_x[b0:b1])
+        del gcol
+        if dt == torch.float32:
+            grad_w2.addmm_(col.t(), go[rows])
+        else:
+            grad_w2.add_(_bf16_mm_f32(col.t(), go[rows]))
+        del col
+    return (None if grad_x is None else grad_x.to(dt), grad_offset, grad_mask,
+            grad_w2.reshape(3, 3, C, O), go.sum(dim=0, dtype=torch.float32))
+
+
 def modulated_deform_conv_backward_cuda(grad_out, x, offset, mask, weight, max_offset=None,
                                         need_x=False):
-    """The DCN backward by ``csrc/dcn_bwd.cu``, in x's type (float32 or bf16).
-    ``max_offset`` as in the forward (a [G, 9] table on the device is taken as
-    it is). Images go in chunks whose column is at most ``BWD_CHUNK_BYTES``.
-    float32: the two products in full float32 (the package keeps TF32 off).
-    bf16: grad_out and the weight rounded to bf16, the products on the tensor
-    cores with float32 accumulation, grad_weight returned in float32. ->
-    (grad_x in x's type or None, grad_offset, grad_mask, grad_weight [3, 3, C, O],
-    grad_bias [O]; the last four float32)."""
-    global bwd_launches
+    """The DCN backward in x's type (float32 or bf16), per chunk of images
+    whose column is at most ``BWD_CHUNK_BYTES``: grad_col = grad_out W^T, ONE
+    launch of the gather pass (:func:`dcn_backward_pass_cuda`: the column,
+    grad_offset, grad_mask and, with ``need_x``, grad_x), then grad_weight +=
+    col^T grad_out. ``max_offset`` as in the forward (a [G, 9] table on the
+    device is taken as it is). float32: the two products in full float32 (the
+    package keeps TF32 off). bf16: grad_out and the weight rounded to bf16, the
+    products on the tensor cores with float32 accumulation, grad_weight
+    returned in float32. -> (grad_x in x's type or None, grad_offset,
+    grad_mask, grad_weight [3, 3, C, O], grad_bias [O]; the last four float32)."""
     B, H, W, C, O, G = _check(x, offset, mask, weight)
     _dcn_grad_dtype(x)
     if tuple(grad_out.shape) != (B, H, W, O):
         raise ValueError(f"grad_out must be {(B, H, W, O)}, got {tuple(grad_out.shape)}")
     if not all(t.is_cuda for t in (grad_out, x, offset, mask, weight)):
         raise ValueError("modulated_deform_conv_backward_cuda needs CUDA tensors")
-    dt = x.dtype
-    sfx = "" if dt == torch.float32 else "_bf16"
-    x = _aligned(x.contiguous(), 16)
-    offset = offset.float().contiguous()
-    mask = mask.float().contiguous()
-    w2 = weight.reshape(9 * C, O).to(dt).contiguous()
-    go = grad_out.to(dt).contiguous().reshape(B * H * W, O)
     radii = clamp_table(max_offset, G).to(x.device, torch.float32).contiguous()
-    grad_offset = torch.empty_like(offset)
-    grad_mask = torch.empty_like(mask)
-    grad_x = torch.zeros(x.shape, dtype=torch.float32, device=x.device) if need_x else None
-    grad_w2 = torch.zeros((9 * C, O), dtype=torch.float32, device=x.device)
-    lib = _bwd_kernels()
-    im2col, coord, scatter = (getattr(lib, f"dcn_bwd_{k}{sfx}") for k in ("im2col", "coord", "input"))
-    per = max(1, BWD_CHUNK_BYTES // max(1, H * W * 9 * C * x.element_size()))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for b0 in range(0, B, per):
-            nb, rows = min(per, B - b0), slice(b0 * H * W, min(B, b0 + per) * H * W)
-            xs, offs, ms = x[b0:b0 + nb], offset[b0:b0 + nb], mask[b0:b0 + nb]
-            col = torch.empty((nb * H * W, 9 * C), dtype=dt, device=x.device)
-            _build.check(im2col(xs.data_ptr(), offs.data_ptr(), ms.data_ptr(), radii.data_ptr(),
-                                col.data_ptr(), nb, H, W, C, G, stream), im2col.__name__)
-            bwd_launches_by_entry["im2col" + sfx] += 1
-            if dt == torch.float32:
-                grad_w2.addmm_(col.t(), go[rows])
-            else:  # bf16 products, float32 accumulation and result
-                grad_w2.add_(torch.mm(col.t(), go[rows], out_dtype=torch.float32))
-            del col
-            gcol = go[rows] @ w2.t()
-            _build.check(coord(xs.data_ptr(), offs.data_ptr(), ms.data_ptr(), radii.data_ptr(),
-                               gcol.data_ptr(), grad_offset[b0:b0 + nb].data_ptr(),
-                               grad_mask[b0:b0 + nb].data_ptr(), nb, H, W, C, G, stream),
-                         coord.__name__)
-            bwd_launches += 1
-            bwd_launches_by_entry["coord" + sfx] += 1
-            if need_x:
-                _build.check(scatter(offs.data_ptr(), ms.data_ptr(), radii.data_ptr(),
-                                     gcol.data_ptr(), grad_x[b0:b0 + nb].data_ptr(),
-                                     nb, H, W, C, G, stream), scatter.__name__)
-                bwd_launches_by_entry["input" + sfx] += 1
-            del gcol
-    return (None if grad_x is None else grad_x.to(dt), grad_offset, grad_mask,
-            grad_w2.reshape(3, 3, C, O), go.sum(dim=0, dtype=torch.float32))
+    return _backward_by_pass(grad_out, _aligned(x.contiguous(), 16), offset.float().contiguous(),
+                             mask.float().contiguous(), weight, radii, need_x, dcn_backward_pass_cuda)
 
 
 class ModulatedDeformConvFunction(torch.autograd.Function):

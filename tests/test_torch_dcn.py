@@ -185,12 +185,21 @@ def _shaped(B, H, W, C, G, O, dtype=torch.bfloat16):
     ((2, 13, 17, 32, 4, 48), torch.bfloat16, "wmma"),         # C not a multiple of 64
     ((1, 9, 70, 128, 4, 64), torch.bfloat16, "wmma"),         # O not 128 or 256
     ((1, 9, 70, 192, 4, 128), torch.bfloat16, "wmma"),        # Cg 48
+    # the tiled float32 entry's envelope: C % 16, Cg % 8, O in (64, 128, 256)
+    ((2, 256, 256, 128, 4, 128), torch.float32, "f32"),       # warp_1 of the training step
+    ((1, 9, 70, 16, 2, 64), torch.float32, "f32"),            # the smallest: one K chunk, Cg 8
+    ((1, 9, 70, 48, 6, 256), torch.float32, "f32"),           # Cg 8, three K chunks
+    ((1, 9, 70, 24, 4, 20), torch.float32, "f32_flat"),       # C % 16
+    ((1, 9, 70, 32, 8, 64), torch.float32, "f32_flat"),       # Cg 4
+    ((1, 9, 70, 128, 4, 96), torch.float32, "f32_flat"),      # O not a width it serves
+    ((1, 9, 70, 128, 4, 512), torch.float32, "f32_flat"),     # O above 256 (refused later by both)
 ], ids=lambda v: str(v).replace(" ", ""))
 def test_route_choice_by_dtype_and_widths(shape, dtype, want):
     B, H, W, C, G, O = shape
     x, off, mask, w = _shaped(1, 2, 3, C, G, O, dtype)
     assert tdcn.route(x, off, w) == want
     assert tdcn.hopper_envelope(dtype, C, O, G) == (want == "hopper")
+    assert tdcn.f32_envelope(dtype, C, O, G) == (want == "f32")
 
 
 @pytest.mark.parametrize("shape,entry", [
@@ -201,11 +210,17 @@ def test_route_choice_by_dtype_and_widths(shape, dtype, want):
     ((1, 5, 6, 128, 4, 128), "f32"),       # bf16 inputs on the float32 entry
     ((1, 5, 6, 24, 4, 20), "wmma"),        # C, O not multiples of 16
     ((1, 5, 6, 128, 4, 128), "tensor"),    # no such entry
+    # float32 inputs outside the tiled f32 entry's envelope, bf16 on the flat one
+    ((1, 5, 6, 24, 4, 64, torch.float32), "f32"),     # C % 16
+    ((1, 5, 6, 32, 8, 64, torch.float32), "f32"),     # Cg 4
+    ((1, 5, 6, 128, 4, 96, torch.float32), "f32"),    # O
+    ((1, 5, 6, 128, 4, 128), "f32_flat"),             # bf16 inputs on the flat float32 entry
+    ((1, 5, 6, 128, 4, 128, torch.float32), "hopper"),  # float32 inputs on a bf16 entry
 ])
 def test_wrappers_refuse_shapes_outside_the_envelope(shape, entry):
     """Refused before any device work, the launch counters untouched."""
-    B, H, W, C, G, O = shape
-    t = _shaped(B, H, W, C, G, O)
+    B, H, W, C, G, O, *dtype = shape
+    t = _shaped(B, H, W, C, G, O, *dtype)
     before = (tdcn.launches, tdcn.cascade_launches, tdcn.select_launches,
               dict(tdcn.launches_by_entry), dict(tdcn.cascade_launches_by_entry))
     with pytest.raises(ValueError, match="does not take|multiples of 16"):
@@ -231,6 +246,21 @@ def test_row_radius_table_is_the_selection():
     assert rows[0, :8].all() and rows[1, 24:32].all() and int(rows.sum()) == 16
     with pytest.raises(ValueError, match="CUDA"):
         tdcn.cascade_select_cuda(t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 13, 17, 128, 4, 128), (1, 9, 70, 48, 6, 256), (2, 5, 21, 16, 2, 64)])
+def test_f32_tiled_kernel_matches_ref_on_gpu(shape):
+    """The tiled float32 entry (route f32): ragged 8 x 16 tiles, every O it
+    serves, Cg 8 to 32; one launch of the entry; 2e-4 of the plain version."""
+    need_gpu()
+    t = [torch.from_numpy(a).cuda() for a in _inputs(9, *shape, spread=3.0)]
+    assert tdcn.route(t[0], t[1], t[3]) == "f32"
+    before = dict(tdcn.launches_by_entry)
+    got = tdcn.modulated_deform_conv(*t, max_offset=2)
+    assert tdcn.launches_by_entry == {e: n + (e == "f32") for e, n in before.items()}
+    want = tdcn.modulated_deform_conv_ref(*t, max_offset=2)
+    assert float((got - want).abs().max()) <= 2e-4
 
 
 @pytest.mark.gpu

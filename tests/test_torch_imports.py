@@ -42,7 +42,15 @@ def test_sources_found():
     assert {"chip_smoke.py", "glare_tpu_torch/ops/_build.py", "glare_tpu_torch/ops/dcn.py",
             "glare_tpu_torch/modules/llflow_vqgan2.py", "glare_tpu_torch/models/llflow_model.py",
             "glare_tpu_torch/cli/infer_paired.py", "glare_tpu_torch/cli/infer_unpaired.py",
-            "glare_tpu_torch/cli/test_stages.py"} <= rel
+            "glare_tpu_torch/cli/test_stages.py", "glare_tpu_torch/tools/dcn_train_designs.py"} <= rel
+    # every kernel source and header the build compiles (python3 chip_smoke.py builds them all)
+    from glare_tpu_torch.ops import _build
+
+    assert set(_build.sources()) == {"vq_argmin", "attn_hopper", "attn_fused", "dcn_hopper", "dcn_fwd",
+                                     "dcn_bwd"}
+    assert [os.path.basename(h) for h in _build.headers()] == ["dcn_tap.cuh"]
+    for name in ("dcn_fwd", "dcn_bwd"):
+        assert '#include "dcn_tap.cuh"' in open(_build.sources()[name]).read(), name
 
 
 def test_the_cascade_entry_is_exported_beside_the_plain_one():
@@ -54,9 +62,13 @@ def test_the_cascade_entry_is_exported_beside_the_plain_one():
         assert callable(getattr(dcn, name)), name
     assert isinstance(dcn.launches, int) and isinstance(dcn.cascade_launches, int)
     assert isinstance(dcn.select_launches, int)
-    assert set(dcn.launches_by_entry) == set(dcn.cascade_launches_by_entry) == {"hopper", "wmma", "f32"}
+    assert set(dcn.launches_by_entry) == set(dcn.cascade_launches_by_entry) == \
+        {"hopper", "wmma", "f32", "f32_flat"}
     src = open(os.path.join(PKG, "csrc", "dcn_fwd.cu")).read()
     assert 'extern "C" int dcn_cascade_fwd(' in src and 'extern "C" int dcn_fwd(' in src
+    src = open(os.path.join(PKG, "csrc", "dcn_bwd.cu")).read()
+    for entry in ("dcn_bwd_pass", "dcn_bwd_pass_bf16"):
+        assert f'extern "C" int {entry}(' in src, entry
     src = open(os.path.join(PKG, "csrc", "dcn_hopper.cu")).read()
     for entry in ("dcn_hopper_fwd", "dcn_hopper_cascade_fwd", "dcn_cascade_select"):
         assert f'extern "C" int {entry}(' in src, entry
