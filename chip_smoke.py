@@ -61,6 +61,16 @@ Phases, each printing one JSON line:
              forward, the bf16 gather pass and vq_argmin; one step through the
              kernels and through the plain versions, both held to a float32
              plain step on the same weights and batch by the stage-ratio rule
+  train_stage2_path  stage-2 training at the full width and depth of
+             confs/train_stage2_LOL.yml (float32, 320 crop, batch 4, seeded
+             weights, synthetic pairs): the ActNorm data-dependent init on one
+             160x160 crop, card against CPU; LLFlowModel.initialize_actnorm on
+             the first batch, a warm-up step and three timed steps of
+             optimize_parameters that launch no kernel and no plain version,
+             cli.train.validate (stage 2) at 600x400 with one vq_argmin launch
+             an image; the first step's loss and gradients on the crop, card
+             against CPU; the saved {k}_G.pth in an inference model, get_sr
+             bit-equal
 Every path is driven with the launch counts (attention and DCN: one per entry,
 see counters()) set to 0 just before and read just after; every attention launch
 of an inference path must land on the hopper entry, every DCN launch on the
@@ -77,6 +87,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1798,10 +1809,10 @@ def train_opt():
     return opt
 
 
-def train_batch(seed):
+def train_batch(seed, batch=TRAIN_BATCH, size=TRAIN_GT):
     """A synthetic pair at the training crop: low-light LQ in the log domain, as the
     dataset's log_low gives it, and a brighter GT in [0, 1]."""
-    lq = seeded_image(seed, TRAIN_BATCH, TRAIN_GT, TRAIN_GT)
+    lq = seeded_image(seed, batch, size, size)
     gt = np.clip(np.exp(lq) * 5.0 + 0.05, 0.0, 1.0).astype(np.float32)
     return {"LQ": dev(lq), "GT": dev(gt)}
 
@@ -1879,6 +1890,33 @@ STEP_GRAD_TOL = 1e-3    # of each tensor's largest gradient
 STEP_VANISH = 1e-6      # of the step's largest gradient: a tensor that vanishes in exact arithmetic
 
 
+def _dists(got, want, vanish_top, what, norm=False):
+    """For each tensor of ``want``: |got - want| as a share of want's largest (``norm``:
+    the 2-norm of got - want over want's 2-norm, which one cancelled element does
+    not dominate). A tensor below STEP_VANISH of ``vanish_top`` (the largest of its
+    kind) vanishes in exact arithmetic and must vanish on both sides: None."""
+    out = {}
+    for n, w in want.items():
+        g, w = got[n].detach().double().cpu(), w.detach().double().cpu()
+        if float(w.abs().max()) <= STEP_VANISH * vanish_top:
+            require(float(g.abs().max()) <= STEP_VANISH * vanish_top, f"{what} {n} does not vanish")
+            out[n] = None
+        elif norm:
+            out[n] = float((g - w).norm() / w.norm())
+        else:
+            out[n] = float((g - w).abs().max() / w.abs().max())
+    return out
+
+
+def _worst(errs):
+    """The largest distance of ``errs`` ({tensor: distance, or None where it vanishes})."""
+    vanishing = sorted(n for n, e in errs.items() if e is None)
+    errs = {k: v for k, v in errs.items() if v is not None}
+    name = max(errs, key=errs.get)
+    return {"worst": errs[name], "worst_tensor": name, "compared": len(errs),
+            "vanishing": len(vanishing), "vanishing_first": vanishing[:3]}
+
+
 def _train_model(mixed_precision):
     """The training model of train_opt() (bf16 compute with float32 master weights
     when ``mixed_precision``), offset heads tempered. -> (model, build seconds)."""
@@ -1892,6 +1930,24 @@ def _train_model(mixed_precision):
     model = create_model(opt, device="cuda")
     temper_offset_heads(model.netG, seed=7, std=0.02)
     return model, time.time() - t0
+
+
+def _tensors_moved(model, params0):
+    """After a step from ``params0``: (trainable tensors changed, of those the ones
+    with a gradient above STEP_VANISH of the step's largest, tensors with such a
+    gradient)."""
+    top = max(float(p.grad.abs().max()) for _, p in model.trainable_parameters())
+    changed = [not torch.equal(p, params0[n]) for n, p in model.trainable_parameters()]
+    live = [float(p.grad.abs().max()) > STEP_VANISH * top for _, p in model.trainable_parameters()]
+    return sum(changed), sum(c for c, lv in zip(changed, live) if lv), sum(live)
+
+
+def _require_updates(moved_after):
+    """The warm-up update (lr 0) changed nothing; every later one moved every tensor
+    with a live gradient (``moved_after``: one _tensors_moved a step)."""
+    require(moved_after[0][0] == 0, "the warm-up step (lr 0) changed a parameter")
+    require(all(live_changed == live > 0 for _, live_changed, live in moved_after[1:]),
+            f"trainable tensors with a gradient that did not move: {moved_after}")
 
 
 def _train_steps(model, batches, per_step, bwd_per_step):
@@ -1921,10 +1977,7 @@ def _train_steps(model, batches, per_step, bwd_per_step):
                     f"train step {i}: DCN backward kernels {moved_e} != {bwd_per_step}")
             require(plain_calls[0] == 0, f"train step {i}: {plain_calls[0]} plain-version calls")
             require(all(math.isfinite(v) for v in losses), f"train step {i}: losses {losses}")
-            top = max(float(p.grad.abs().max()) for _, p in model.trainable_parameters())
-            changed = [not torch.equal(p, params0[n]) for n, p in model.trainable_parameters()]
-            live = [float(p.grad.abs().max()) > STEP_VANISH * top for _, p in model.trainable_parameters()]
-            moved_after.append((sum(changed), sum(c for c, lv in zip(changed, live) if lv), sum(live)))
+            moved_after.append(_tensors_moved(model, params0))
             ov = model.last_dcn_overflow()
             steps.append({"step": i, "ms": ms, "images_per_s": TRAIN_BATCH / ms * 1e3,
                           "lr": model.schedule(i), "losses": dict(model.get_current_log()),
@@ -1933,10 +1986,7 @@ def _train_steps(model, batches, per_step, bwd_per_step):
                           "dcn_overflow": ov, "clamp_share": ov["taps_beyond_tail"] / taps})
     path_counts = counters()
     peak_mem = torch.cuda.max_memory_allocated()
-    # (changed, changed of those with a gradient above STEP_VANISH of the step's largest, such)
-    require(moved_after[0][0] == 0, "the warm-up step (lr 0) changed a parameter")
-    require(all(live_changed == live > 0 for _, live_changed, live in moved_after[1:]),
-            f"trainable tensors with a gradient that did not move: {moved_after}")
+    _require_updates(moved_after)
     for n, p in model.netG.named_parameters():
         if n.split(".", 1)[0] in FROZEN:
             require(not p.requires_grad and torch.equal(p, frozen0[n]), f"frozen {n} changed")
@@ -1976,19 +2026,9 @@ def phase_train_path():
         torch.cuda.synchronize()
         require(counters() == before, "the plain-version step launched a kernel")
     top = max(float(g.abs().max()) for g in grads_p.values())
-    worst, vanishing = {}, []
-    for n, gp in grads_p.items():
-        err = float((grads_k[n] - gp).abs().max())
-        scale = float(gp.abs().max())
-        if scale <= STEP_VANISH * top:
-            vanishing.append(n)
-            require(float(grads_k[n].abs().max()) <= STEP_VANISH * top, f"gradient {n} does not vanish")
-        else:
-            worst[n] = err / scale
-    worst_name = max(worst, key=worst.get)
+    grads = _worst(_dists(grads_k, grads_p, top, "gradient"))
     cmp = {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
-           "parts_kernel": parts_k, "parts_plain": parts_p, "grad_worst_rel": worst[worst_name],
-           "grad_worst_tensor": worst_name, "vanishing_tensors": vanishing,
+           "parts_kernel": parts_k, "parts_plain": parts_p, "grads": grads,
            "offset_grid_gap": [gap_k, gap_p],
            "tol": f"loss {STEP_LOSS_TOL} relative; each gradient within {STEP_GRAD_TOL} of its largest "
                   f"(a tensor below {STEP_VANISH} of the step's largest must vanish on both)"}
@@ -2000,7 +2040,7 @@ def phase_train_path():
           "max_memory_allocated": peak_mem, "kernel_vs_plain_step": cmp})
     require(min(gap_k, gap_p) > 0.02, f"offsets within {min(gap_k, gap_p)} px of the integer grid")
     require(cmp["loss_rel"] <= STEP_LOSS_TOL, f"step loss: kernels {loss_k}, plain {loss_p}")
-    require(worst[worst_name] <= STEP_GRAD_TOL, f"gradient {worst_name}: {worst[worst_name]}")
+    require(grads["worst"] <= STEP_GRAD_TOL, f"gradient {grads['worst_tensor']}: {grads['worst']}")
     return path_counts, model
 
 
@@ -2092,6 +2132,324 @@ def phase_train_path_bf16():
     return path_counts, model
 
 
+# ------------------------------------------------------- stage-2 training --
+
+S2_GT, S2_BATCH = 320, 4     # confs/train_stage2_LOL.yml: GT_size, batch_size
+S2_CROP = 160                # the card-against-CPU checks: one 160x160 crop of one image
+S2_VAL = 2                   # validation images, at the eval set's 600x400
+ACTNORM_TOL = 1e-4           # ActNorm init, card against CPU: of each tensor's largest
+ACTNORM_MEAN_TOL, ACTNORM_STD_TOL = 1e-4, 1e-3   # each ActNorm's output over the init batch
+S2_TRAINED_TOL = 3e-3        # the step at the trained weights: each gradient's 2-norm distance, relative
+S2_FAULT = 1.1               # its control: a 10% fault in one coupling's conditional backward
+S2_FAULT_SMALL = 1.01        # reported: a 1% fault, the bar's resolution
+S2_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_stage2")
+
+
+def train2_opt():
+    """The values of confs/train_stage2_LOL.yml that stage-2 training reads (the port's
+    own dict: no yaml here): full width and depth (ConEncoder1 ch 128, ch_mult
+    [1,2,4]; flow K 12, L 2, hidden 64; VQGAN n_embed 8192), float32, GT_size 320,
+    batch 4, Adam (0.9, 0.99), lr 5e-4, warmup 10, the conf's relative milestones at
+    niter 80000; checkpoints under build/ (git-ignored)."""
+    opt = stage2_opt("float32")
+    opt.pop("inference_dtype")
+    opt.update({"name": "train_stage2_LOL", "is_train": True,
+                "path": {"models": os.path.join(S2_DIR, "models"),
+                         "training_state": os.path.join(S2_DIR, "training_state")}})
+    opt["datasets"] = {"train": {"quant": 32, "GT_size": S2_GT, "batch_size": S2_BATCH, "log_low": True}}
+    opt["train"] = {"manual_seed": 10, "lr_G": 5e-4, "weight_decay_G": 0, "beta1": 0.9, "beta2": 0.99,
+                    "lr_scheme": "MultiStepLR", "warmup_iter": 10, "lr_gamma": 0.5, "niter": 80000,
+                    "lr_steps": [int(f * 80000) for f in (0.5, 0.75, 0.9, 0.95)],
+                    "weight_l1": 0, "weight_fl": 1}
+    return opt
+
+
+def _actnorm_tensors(net):
+    return {n: t for n, t in net.state_dict().items() if ".actnorm." in n}
+
+
+def _actnorm_init_card_vs_cpu(model, cpu_model, crop):
+    """The ActNorm data-dependent init (normal_flow with ddinit) on one crop, on the card
+    and on the CPU from the same weights: every ActNorm's bias / logs within
+    ACTNORM_TOL of the tensor's largest (a bias below STEP_VANISH of the largest bias
+    is rounding noise: the second ActNorm of a run of steps sees a zero-mean input),
+    and, by forward hooks on the card, each ActNorm's output over the crop of mean 0
+    and std 1 per channel. The card's weights are restored afterwards."""
+    from glare_tpu_torch.modules.flow_layers import ActNorm2d
+
+    w0 = {n: t.detach().clone() for n, t in model.netG.state_dict().items()}
+    cpu_model.netG.load_state_dict(w0)
+    stats = []
+
+    def hook(module, args, out):
+        y = out[0].detach().double()
+        mean = y.mean(dim=(0, 2, 3))
+        std = ((y - mean[None, :, None, None]) ** 2).mean(dim=(0, 2, 3)).sqrt()
+        stats.append((float(mean.abs().max()), float((std - module.scale).abs().max())))
+
+    def ddinit(m, batch):
+        lq = batch["LQ"].permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        latent = m.encode_gt_latent(batch["GT"]).permute(0, 3, 1, 2)
+        with torch.no_grad():
+            m.netG.normal_flow(latent.contiguous(memory_format=torch.channels_last), lq, ddinit=True)
+
+    handles = [m.register_forward_hook(hook) for m in model.netG.modules() if isinstance(m, ActNorm2d)]
+    try:
+        ddinit(model, crop)
+    finally:
+        for h in handles:
+            h.remove()
+    ddinit(cpu_model, {k: v.cpu() for k, v in crop.items()})
+    card, cpu = _actnorm_tensors(model.netG), _actnorm_tensors(cpu_model.netG)
+    require(len(stats) == len(card) // 2, f"{len(stats)} ActNorm outputs hooked, {len(card) // 2} ActNorms")
+    errs = {}
+    for kind in ("bias", "logs"):
+        want = {n: t for n, t in cpu.items() if n.endswith(kind)}
+        errs.update(_dists(card, want, max(float(t.abs().max()) for t in want.values()), "ActNorm"))
+    worst = _worst(errs)
+    require(worst["worst"] <= ACTNORM_TOL, f"ActNorm {worst['worst_tensor']}: {worst['worst']:.3e} of "
+            f"its largest (tolerance {ACTNORM_TOL})")
+    require(all(not torch.equal(cpu[n], w0[n].cpu()) for n in cpu if n.endswith("logs")),
+            "the ActNorm init left a logs tensor as it was")
+    worst_mean, worst_std = max(s[0] for s in stats), max(s[1] for s in stats)
+    require(worst_mean <= ACTNORM_MEAN_TOL, f"an ActNorm output has a channel mean {worst_mean}")
+    require(worst_std <= ACTNORM_STD_TOL, f"an ActNorm output has a channel std off by {worst_std}")
+    model.netG.load_state_dict(w0)
+    return {"actnorms": len(stats), **worst,
+            "output_worst_abs_channel_mean": worst_mean, "output_worst_abs_channel_std_minus_1": worst_std,
+            "tol": f"bias / logs within {ACTNORM_TOL} of each tensor's largest; outputs: |mean| <= "
+                   f"{ACTNORM_MEAN_TOL}, |std - 1| <= {ACTNORM_STD_TOL} per channel"}
+
+
+def _loss_and_grads(model, batch):
+    model.optimizer.zero_grad(set_to_none=True)
+    loss = model.train_loss(batch["LQ"], batch["GT"])
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.trainable_parameters()}
+    model.optimizer.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def _losses_and_grads_card_cpu(model, cpu_model, crop, weights):
+    """One step's loss and trainable gradients on the crop at ``weights``, on the card
+    and on the CPU; the card's weights are restored. Holds the loss to
+    STEP_LOSS_TOL relative. -> (loss card, loss CPU, grads card, grads CPU)."""
+    kept = {n: t.detach().clone() for n, t in model.netG.state_dict().items()}
+    model.netG.load_state_dict(weights)
+    cpu_model.netG.load_state_dict({n: t.cpu() for n, t in weights.items()})
+    loss_k, grads_k = _loss_and_grads(model, crop)
+    loss_c, grads_c = _loss_and_grads(cpu_model, {k: v.cpu() for k, v in crop.items()})
+    model.netG.load_state_dict(kept)
+    require(math.isfinite(loss_k) and abs(loss_k - loss_c) <= STEP_LOSS_TOL * abs(loss_c),
+            f"stage-2 loss: card {loss_k}, CPU {loss_c}")
+    require(set(grads_k) == set(grads_c), "card and CPU train different parameters")
+    return loss_k, loss_c, grads_k, grads_c
+
+
+@contextlib.contextmanager
+def _cond_grad_fault(net, scale, coupling=0):
+    """The control of the trained-weights bar: inside the block, the gradient that the
+    ``coupling``-th coupling of the flow sends into the conditional features is scaled
+    by ``scale`` and its values are unchanged: a fault in the conditional branch's
+    backward, upstream of RRDB.cond_conv."""
+    affine = [m.affine for m in net.flowUpsamplerNet.layers if getattr(m, "affine", None) is not None]
+
+    def hook(module, args, kwargs):
+        ft = kwargs["ft"]
+        return args, {**kwargs, "ft": ft + (scale - 1.0) * (ft - ft.detach())}
+
+    handle = affine[coupling].register_forward_pre_hook(hook, with_kwargs=True)
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def _step_card_vs_cpu(model, cpu_model, crop, init_weights):
+    """One step's loss and every trainable gradient on the crop, card against CPU, at
+    two points. (1) ``init_weights`` (netG just after the ActNorm init): the loss
+    within STEP_LOSS_TOL relative, each gradient within STEP_GRAD_TOL of its largest
+    (a tensor below STEP_VANISH of the step's largest vanishes on both); here every
+    Conv2dZeros is 0, so the FNets' hidden layers and RRDB.cond_conv get exactly 0.
+    (2) The model's trained weights (after the timed steps), where those tensors have
+    a gradient: the loss to the same bar, and each gradient within S2_TRAINED_TOL in
+    the 2-norm, ||g - g_ref|| / ||g_ref||, both against the CPU's float32 step and
+    against the exact one (the CPU model widened to float64). Some FNet gradients
+    there are ill-conditioned sums whose float32 rounding, on either device, reaches
+    ~1e-3 of the largest element; the 2-norm is not ruled by one element. Reported
+    beside them: the CPU's own float32 distance from float64 and the card's step
+    run again. The control, which must exceed the bar: the card's step with the fault of
+    _cond_grad_fault (S2_FAULT; S2_FAULT_SMALL reported). The CPU model is float64
+    afterwards."""
+    cpu_crop = {k: v.cpu() for k, v in crop.items()}
+    loss_k, loss_c, grads_k, grads_c = _losses_and_grads_card_cpu(model, cpu_model, crop, init_weights)
+    top = max(float(g.abs().max()) for g in grads_c.values())
+    first = _worst(_dists(grads_k, grads_c, top, "gradient"))
+    trained = {n: t.detach().clone() for n, t in model.netG.state_dict().items()}
+    loss_tk, loss_tc, grads_tk, grads_tc = _losses_and_grads_card_cpu(model, cpu_model, crop, trained)
+    _, rerun = _loss_and_grads(model, crop)
+    faulty = {}
+    for fault in (S2_FAULT, S2_FAULT_SMALL):
+        with _cond_grad_fault(model.netG, fault):
+            faulty[fault] = _loss_and_grads(model, crop)[1]
+    cpu_model.netG.double()
+    cpu_model.net_hq.double()
+    cpu_model.netG.load_state_dict({n: t.cpu() for n, t in trained.items()})
+    loss_x, exact = _loss_and_grads(cpu_model, cpu_crop)
+    top_t = max(float(g.abs().max()) for g in exact.values())
+
+    def dist(got, want, norm=True):
+        return _worst(_dists(got, want, top_t, "gradient", norm=norm))
+
+    trained_cmp = {
+        "loss_card": loss_tk, "loss_cpu": loss_tc, "loss_float64": loss_x,
+        "loss_rel": abs(loss_tk - loss_tc) / abs(loss_tc),
+        "grads": dist(grads_tk, grads_tc), "grads_vs_float64": dist(grads_tk, exact),
+        "cpu_float32_vs_float64": dist(grads_tc, exact),
+        "largest_element": {"card_vs_cpu": dist(grads_tk, grads_tc, False)["worst"],
+                            "card_vs_float64": dist(grads_tk, exact, False)["worst"],
+                            "cpu_float32_vs_float64": dist(grads_tc, exact, False)["worst"]},
+        "card_rerun": dist(rerun, grads_tk)["worst"],
+        "control": {"fault": f"coupling 0's gradient into the conditional features x {S2_FAULT}",
+                    **dist(faulty[S2_FAULT], grads_tc)},
+        "control_small_fault": {"fault": S2_FAULT_SMALL,
+                                "worst": dist(faulty[S2_FAULT_SMALL], grads_tc)["worst"]},
+        "tol": f"loss {STEP_LOSS_TOL} relative; each gradient within {S2_TRAINED_TOL} in the 2-norm of "
+               f"the CPU's and of the float64 gradient (a tensor below {STEP_VANISH} of the step's "
+               "largest must vanish on both); the control above it"}
+    return {"loss_card": loss_k, "loss_cpu": loss_c, "loss_rel": abs(loss_k - loss_c) / abs(loss_c),
+            "grads": first,
+            "tol": f"loss {STEP_LOSS_TOL} relative; each gradient within {STEP_GRAD_TOL} of its largest "
+                   f"(a tensor below {STEP_VANISH} of the step's largest must vanish on both)",
+            "at_trained_weights": trained_cmp}
+
+
+def _nll_at(model, weights, batches):
+    """Each batch's NLL at ``weights`` (the model's own are restored)."""
+    kept = {n: t.detach().clone() for n, t in model.netG.state_dict().items()}
+    model.netG.load_state_dict(weights)
+    nll = [model.get_encode_nll(b["LQ"], b["GT"]) for b in batches]
+    model.netG.load_state_dict(kept)
+    return nll
+
+
+def phase_train_stage2_path():
+    """Stage-2 training at the full width of confs/train_stage2_LOL.yml, float32, 320 crop,
+    batch 4, seeded weights, synthetic pairs. First the ActNorm init on one 160x160
+    crop, card against CPU. Then the path, with the launch counts set to 0 before it
+    and read after it: LLFlowModel.initialize_actnorm on the first batch, a warm-up
+    step (its update is 0: warmup from count 0) and three timed steps of
+    optimize_parameters (no kernel and no plain version launched: the attention at
+    80x80 = 6,400 tokens is dense and the GT is encoded without quantizing), then
+    cli.train.validate (stage 2) on 600x400 images, one vq_argmin launch an image
+    through decode_latent. Then one step's loss and gradients on the crop, card
+    against CPU, at the weights of the ActNorm init and at the trained weights
+    (_step_card_vs_cpu); each batch's NLL at the init's weights; and save ->
+    {k}_G.pth -> an inference LLFlowModel whose get_sr is bit-equal to the trained
+    model's."""
+    import logging
+
+    from glare_tpu_torch.cli import train as train_cli
+    from glare_tpu_torch.models import create_model
+
+    require(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+            "TF32 is on: the float32 training path would not be float32")
+    t0 = time.time()
+    model = create_model(train2_opt(), device="cuda")
+    build_s = time.time() - t0
+    require(all(p.dtype == torch.float32 and p.requires_grad for p in model.netG.parameters()),
+            "stage-2 training: netG is not float32 and trainable")
+    require(not any(p.requires_grad for p in model.net_hq.parameters()), "the VQGAN is not frozen")
+    t0 = time.time()
+    cpu_model = create_model(train2_opt(), device="cpu")
+    cpu_build_s = time.time() - t0
+    batches = [train_batch(90 + i, S2_BATCH, S2_GT) for i in range(4)]
+    crop = {k: v[:1, :S2_CROP, :S2_CROP].contiguous() for k, v in batches[0].items()}
+    t0 = time.time()
+    init_cmp = _actnorm_init_card_vs_cpu(model, cpu_model, crop)
+    init_cmp["seconds"] = round(time.time() - t0, 2)
+
+    val_loader = [{"LQ": seeded_image(40 + i, 1, H2, W2), "GT": np.clip(np.exp(seeded_image(40 + i, 1, H2, W2))
+                                                                       * 5.0 + 0.05, 0.0, 1.0)}
+                  for i in range(S2_VAL)]
+    no_launch = {k: 0 for k in counters()}
+    actnorm0 = {n: t.clone() for n, t in _actnorm_tensors(model.netG).items()}
+    reset_counters()
+    steps, moved_after = [], []
+    with counted_plain_versions() as plain_calls:
+        _, init_ms = sync_ms(lambda: model.initialize_actnorm(batches[0]))
+        w_init = {n: t.detach().to("cpu", copy=True) for n, t in model.netG.state_dict().items()}
+        require(counters() == no_launch and plain_calls[0] == 0, "initialize_actnorm launched a kernel")
+        require(all(not torch.equal(t, actnorm0[n]) for n, t in _actnorm_tensors(model.netG).items()
+                    if n.endswith("logs")), "initialize_actnorm left an ActNorm's logs as they were")
+        for i, batch in enumerate(batches):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            params0 = {n: p.detach().clone() for n, p in model.trainable_parameters()}
+            before = counters()
+            loss, ms = sync_ms(lambda: model.optimize_parameters(batch))
+            moved = moved_since(before)
+            require(moved == no_launch, f"stage-2 train step {i} launched kernels: {moved}")
+            require(plain_calls[0] == 0, f"stage-2 train step {i}: {plain_calls[0]} plain-version calls")
+            require(math.isfinite(loss), f"stage-2 train step {i}: loss {loss}")
+            moved_after.append(_tensors_moved(model, params0))
+            steps.append({"step": i, "ms": ms, "images_per_s": S2_BATCH / ms * 1e3, "lr": model.schedule(i),
+                          "nll_loss": loss, "trainable_tensors_changed": moved_after[-1][0]})
+        peak_mem = torch.cuda.max_memory_allocated()
+        before = counters()
+        logger = logging.getLogger("chip_smoke")
+        psnr, val_ms = sync_ms(lambda: train_cli.validate(model, val_loader, len(batches), logger,
+                                                          stage=2))
+        moved = moved_since(before)
+        want_val = {**no_launch, "vq_argmin": S2_VAL}
+        require(moved == want_val, f"stage-2 validation launches {moved} != {want_val}")
+        require(plain_calls[0] == 0, f"stage-2 validation: {plain_calls[0]} plain-version calls")
+        require(math.isfinite(psnr), f"stage-2 validation PSNR {psnr}")
+    path_counts = counters()
+    _require_updates(moved_after)
+
+    t0 = time.time()
+    step_cmp = _step_card_vs_cpu(model, cpu_model, crop, w_init)
+    step_cmp["seconds"] = round(time.time() - t0, 2)
+    del cpu_model
+    # each batch's NLL at the weights of the ActNorm init, beside the steps' NLL
+    for step, nll in zip(steps, _nll_at(model, w_init, batches)):
+        step["nll_at_init_weights"] = nll
+
+    # the checkpoint round trip: {k}_G.pth into an inference model, float32
+    path = model.save(len(batches))
+    infer = create_model(stage2_opt("float32"), device="cuda")
+    infer.load_network(path)
+    os.remove(path)
+    lq = dev(val_loader[0]["LQ"])
+    require(torch.equal(infer.get_sr(lq), model.get_sr(lq)),
+            "get_sr of the model loaded from the saved _G.pth differs from the trained model's")
+    del infer
+    timed = steps[1:]
+    ms_mean = sum(t["ms"] for t in timed) / len(timed)
+    emit({"phase": "train_stage2_path",
+          "config": "confs/train_stage2_LOL.yml widths and depth, float32, Adam (0.9, 0.99) lr 5e-4 warmup 10",
+          "crop": [S2_GT, S2_GT], "batch": S2_BATCH, "model_build_s": round(build_s, 2),
+          "cpu_model_build_s": round(cpu_build_s, 2), "actnorm_init_ms": init_ms,
+          "steps": steps, "ms_per_step": ms_mean, "images_per_s": S2_BATCH / ms_mean * 1e3,
+          "max_memory_allocated": peak_mem, "launches_total": path_counts,
+          "expected_per_step": no_launch, "expected_validation": want_val,
+          "validation": {"images": S2_VAL, "input": [H2, W2], "ms": val_ms, "psnr_gray_adjusted": psnr},
+          "actnorm_init_card_vs_cpu": {"crop": [1, S2_CROP, S2_CROP], **init_cmp},
+          "step_card_vs_cpu": {"crop": [1, S2_CROP, S2_CROP], "weights": "after the ActNorm init",
+                               **step_cmp},
+          "checkpoint_round_trip": "get_sr bit-equal"})
+    first, trained = step_cmp["grads"], step_cmp["at_trained_weights"]
+    require(first["worst"] <= STEP_GRAD_TOL,
+            f"first step, gradient {first['worst_tensor']}: {first['worst']:.3e} of its largest")
+    for key in ("grads", "grads_vs_float64"):
+        require(trained[key]["worst"] <= S2_TRAINED_TOL,
+                f"trained weights, {key} {trained[key]['worst_tensor']}: {trained[key]['worst']:.3e}")
+    require(trained["control"]["worst"] > S2_TRAINED_TOL,
+            f"the control's fault reads {trained['control']['worst']:.3e}, within the bar")
+    return path_counts, model
+
+
 def _category(name):
     n = name.lower()
     for key, cat in (("attn_hopper_kernel", "attention (this repo)"),
@@ -2155,7 +2513,8 @@ PATHS = {"vq_argmin": "main_path", "attn_hopper": "main_path", "attn_wmma": None
          "dcn_bwd_bf16": "train_path_bf16", "dcn_hopper_train": "train_path_bf16"}
 # a row whose launches are another row's counter (the same entry on another path)
 COUNTER_OF = {"dcn_hopper_train": "dcn_hopper"}
-ALL_PHASES = "device,build,kernels,main_path,hybrid_path,stage2_path,train_path,train_path_bf16"
+ALL_PHASES = ("device,build,kernels,main_path,hybrid_path,stage2_path,train_path,train_path_bf16,"
+              "train_stage2_path")
 
 
 def main():
@@ -2163,8 +2522,9 @@ def main():
     ap.add_argument("--phases", default=ALL_PHASES,
                     help="comma list; the last line is printed only when all of them ran")
     ap.add_argument("--profile", action="store_true",
-                    help="after main_path, trace one get_sr (after train_path and train_path_bf16, "
-                         "one training step) with torch.profiler and print device time by kernel category")
+                    help="after main_path, trace one get_sr (after train_path, train_path_bf16 and "
+                         "train_stage2_path, one training step) with torch.profiler and print device "
+                         "time by kernel category")
     args = ap.parse_args()
     phases = args.phases.split(",")
     t_start = time.time()
@@ -2200,6 +2560,14 @@ def main():
             batch = train_batch(71)
             phase_profile(lambda: model.optimize_parameters(batch),
                           "one stage-3 training step, batch 2, 256x256, train.mixed_precision (bf16)")
+        del model
+        torch.cuda.empty_cache()
+    if "train_stage2_path" in phases:
+        counts["train_stage2_path"], model = phase_train_stage2_path()
+        if args.profile:
+            batch = train_batch(95, S2_BATCH, S2_GT)
+            phase_profile(lambda: model.optimize_parameters(batch),
+                          "one stage-2 training step, batch 4, 320x320, float32")
         del model
     if any(ph not in phases for ph in ALL_PHASES.split(",")):
         emit({"partial": True, "phases": phases, "seconds": round(time.time() - t_start, 1)})

@@ -1,6 +1,8 @@
-"""Stage-3 training on the GPU (counterpart of ``glare_tpu/cli/train.py``).
+"""Stage-2 and stage-3 training on the GPU (counterpart of ``glare_tpu/cli/train.py``).
 
-    python -m glare_tpu_torch.cli.train --stage 3 --opt confs/train_stage3_LOL.yml \
+    python -m glare_tpu_torch.cli.train --stage 2 [--opt confs/train_stage2_LOL.yml] \
+        [--niter N] [--device cpu]
+    python -m glare_tpu_torch.cli.train --stage 3 [--opt confs/train_stage3_LOL.yml] \
         [--niter N] [--device cpu]
 
 Runs on ``cuda`` unless ``--device cpu`` is given; with no GPU and no explicit
@@ -9,11 +11,11 @@ discovery, experiment-dir archival, the ``--niter`` override (with
 ``lr_steps_rel`` re-expanded), ``print_freq`` logging, the checkpoint cadence
 (``save_checkpoint_freq``, denser past 30k / 40k / 50k iterations), a non-finite
 loss reloading the newest training state, validation every ``val_freq`` through
-``get_sr`` with best-PSNR snapshots, and 2 kept training states. Artifacts:
-``{iter}_G.pth`` under ``models/`` (a ``state_dict`` the inference CLIs load)
-and ``{iter}.state`` under ``training_state/``.
-
-Stage 2 (``--stage 2``) is not ported yet (ROADMAP.md) and raises.
+``get_sr`` (stage 2: and ``decode_latent``) with best-PSNR snapshots, and 2 kept
+training states. Artifacts: ``{iter}_G.pth`` under ``models/`` (a ``state_dict``
+the inference CLIs and ``cli/test_stages.py`` load) and ``{iter}.state`` under
+``training_state/``. ``--stage`` picks the default conf and the validation; the
+conf's ``model`` must be that stage's (stage 2 ``LLFlow``, stage 3 ``VQLLFLOWD``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ from ..utils.metrics import PSNR, gray_mean_adjust
 from ..utils.util import get_resume_paths, opt_get
 
 
+STAGE_MODEL = {2: "LLFlow", 3: "VQLLFLOWD"}
+
+
 def get_resume_state(opt):
     resume_state_path, _ = get_resume_paths(opt)
     if resume_state_path is None or not os.path.isfile(resume_state_path):
@@ -49,12 +54,15 @@ def main(stage=3, argv=None):
     parser.add_argument("--niter", type=int, default=None, help="override train.niter")
     parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
-    if args.stage != 3:
+    if args.stage not in STAGE_MODEL:
         raise NotImplementedError(
             f"stage-{args.stage} training is not ported yet (ROADMAP.md, queue 1); "
-            "glare_tpu_torch trains stage 3")
+            "glare_tpu_torch trains stages 2 and 3")
     device = resolve_device(args.device)
     opt = parse(args.opt or f"./confs/train_stage{args.stage}_LOL.yml", is_train=True)
+    if opt["model"] != STAGE_MODEL[args.stage]:
+        raise ValueError(f"--stage {args.stage} trains model {STAGE_MODEL[args.stage]!r}; the conf "
+                         f"names {opt['model']!r}")
     if args.niter:
         opt["train"]["niter"] = args.niter
         if opt["train"].get("lr_steps_rel"):
@@ -143,7 +151,7 @@ def main(stage=3, argv=None):
                 model.save_training(epoch, current_step)
 
             if current_step % val_freq == 0:
-                psnr = validate(model, val_loader, current_step, logger)
+                psnr = validate(model, val_loader, current_step, logger, stage=args.stage)
                 if psnr > best_psnr:
                     best_psnr = psnr
                     model.save(f"best_psnr_{current_step}")
@@ -158,14 +166,18 @@ def main(stage=3, argv=None):
     return model, current_step
 
 
-def validate(model, val_loader, step, logger, n_max=4):
-    """Mean PSNR (after the gray-mean adjustment) of the first ``n_max`` images."""
+def validate(model, val_loader, step, logger, n_max=4, stage=3):
+    """Mean PSNR (after the gray-mean adjustment) of the first ``n_max`` images;
+    stage 2 decodes its latent through the frozen VQGAN (``decode_latent``)."""
     psnrs = []
     for i, batch in enumerate(val_loader):
         if i >= n_max:
             break
         gt = np.asarray(batch["GT"])[0]
-        sr = np.clip(model.get_sr(batch["LQ"]).cpu().numpy()[0], 0, 1)
+        sr = model.get_sr(batch["LQ"])
+        if stage == 2:
+            sr = model.decode_latent(sr)
+        sr = np.clip(sr.cpu().numpy()[0], 0, 1)
         if sr.shape != gt.shape:
             sr = sr[: gt.shape[0], : gt.shape[1]]
         psnrs.append(PSNR(gt, gray_mean_adjust(sr, gt)))

@@ -1,8 +1,8 @@
 """Model registry (counterpart of ``glare_tpu/models/__init__.py``).
 
 ``create_model(opt, device=...)`` maps ``opt['model']`` to a wrapper class.
-Ported so far: the stage-2 model ('LLFlow', inference) and the stage-3 model
-('VQLLFLOWD', inference and training).
+Ported so far: the stage-2 model ('LLFlow') and the stage-3 model
+('VQLLFLOWD'), inference and training.
 """
 
 from __future__ import annotations

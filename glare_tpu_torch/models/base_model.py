@@ -87,3 +87,36 @@ class BaseModel:
 
     def get_current_log(self):
         return self.log_dict
+
+    # ---------------- training (a model with netG, optimizer, schedule, updates) ----------------
+
+    def trainable_parameters(self):
+        return [(n, p) for n, p in self.netG.named_parameters() if p.requires_grad]
+
+    def _update(self):
+        """Apply the optimizer at ``schedule(updates so far)`` (optax's count from 0)."""
+        lr = self.schedule(self.updates)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.updates += 1
+
+    def save(self, iter_label):
+        return self.save_network(self.netG, "G", iter_label)
+
+    def save_training(self, epoch, iter_step):
+        params = {n: p.detach().cpu() for n, p in self.trainable_parameters()}
+        return self.save_training_state(epoch, iter_step, {"params": params, "updates": self.updates,
+                                                           "optimizer": self.optimizer.state_dict()})
+
+    def resume_training(self, path):
+        """Restore the trainable weights and the optimizer from ``{iter}.state``
+        -> (epoch, iter)."""
+        payload = self.load_training_state(path)
+        with torch.no_grad():
+            own = dict(self.netG.named_parameters())
+            for k, v in payload["state"]["params"].items():
+                own[k].copy_(v)
+        self.optimizer.load_state_dict(payload["state"]["optimizer"])
+        self.updates = payload["state"]["updates"]
+        return payload["epoch"], payload["iter"]

@@ -1,5 +1,4 @@
-"""Stage-2 model wrapper, inference half (counterpart of
-``glare_tpu/models/llflow_model.py``).
+"""Stage-2 model wrapper (counterpart of ``glare_tpu/models/llflow_model.py``).
 
 The stage-2 generator's output is a VQGAN *latent*: ``get_sr(lq)`` runs the
 conditional encoder and the reverse flow, ``decode_latent`` sends the latent
@@ -11,11 +10,22 @@ Public tensors are ``[B, H, W, C]`` float32 like the JAX model's; inside they ar
 NCHW in channels_last memory. With ``inference_dtype: bfloat16`` the convolution
 stacks (conditional encoder, VQGAN) run in bf16 and the flow in float32.
 
-Not ported yet: the train step and the ActNorm data-dependent init.
+Training (``is_train``), the JAX model's step:
+    gt_latent = no_grad(vq.encode(GT))          (the encoder + quant_conv, no codebook)
+    loss = weight_fl * mean(nll(flow.encode(gt_latent, cond=ConEncoder1(LQ))))
+with the whole generator trainable in float32 and the VQGAN frozen. Adam
+(beta1, beta2 from the conf, eps 1e-8) in two groups, as the JAX optax
+``multi_transform``: ``RRDB.*`` (the conditional encoder) with decoupled weight
+decay 1e-5, the flow with ``weight_decay_G``; AdamW's decoupled decay is optax's
+``scale_by_adam -> add_decayed_weights -> schedule`` chain, at ``schedule(k)`` on
+its k-th update. ``initialize_actnorm`` runs the ActNorm data-dependent init
+once, on the first batch, before the first step; ``load_network`` and
+``resume_training`` mark it done.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 
 import torch
@@ -24,7 +34,10 @@ from ..modules.llflow_vqgan2 import LLFlowVQGAN2
 from ..nn.layers import cast_convs_, seed_init_
 from ..utils.util import opt_get
 from .base_model import BaseModel
+from .lr_scheduler import build_schedule
 from .networks import define_Flow, find_vqgan
+
+RRDB_WEIGHT_DECAY = 1e-5  # the conditional encoder's group (reference: LLFlow_model.py:90-121)
 
 
 def _nchw(x, device):
@@ -36,15 +49,18 @@ def _nhwc(x):
     return x.float().permute(0, 2, 3, 1).contiguous()
 
 
+def _label_params(netG):
+    """{name: 'rrdb' for the conditional encoder's parameters, 'other' for the flow's}."""
+    return {n: "rrdb" if n.split(".", 1)[0] == "RRDB" else "other"
+            for n, _ in netG.named_parameters()}
+
+
 class LLFlowModel(BaseModel):
     def __init__(self, opt, step=0, device="cuda"):
         super().__init__(opt, device=device)
-        if self.is_train:
-            raise NotImplementedError(
-                "stage-2 training is not ported yet (optimizer, ActNorm data-dependent init); "
-                "build the model with is_train=False")
         self.heats = opt_get(opt, ["val", "heats"])
-        self.dtype = (torch.bfloat16 if opt.get("inference_dtype") == "bfloat16"
+        # training keeps float32 parameters and float32 math, as the JAX model does
+        self.dtype = (torch.bfloat16 if not self.is_train and opt.get("inference_dtype") == "bfloat16"
                       else torch.float32)
         self.netG = define_Flow(opt, step)
         assert isinstance(self.netG, LLFlowVQGAN2)
@@ -58,21 +74,28 @@ class LLFlowModel(BaseModel):
         vq_path = opt_get(opt, ["path", "pretrained_vqgan"])
         if vq_path and os.path.exists(self._torchify(vq_path)):
             self.load_into(self.net_hq, self._torchify(vq_path), strict=False)
+        self._actnorm_inited = False
         self._finalize()
+        if self.is_train:
+            self._build_optimizer(opt.get("train") or {})
 
     def _finalize(self):
-        """Move to the device, set eval mode, channels_last and the compute dtype."""
+        """Move to the device, channels_last and the compute dtype. Inference: eval
+        mode, no gradients. Training: netG float32 and trainable, the VQGAN frozen."""
         for net in (self.netG, self.net_hq):
             net.to(self.device).eval().requires_grad_(False)
             net.to(memory_format=torch.channels_last)
         self.netG.set_compute_dtype(self.dtype)  # the flow stays float32
         cast_convs_(self.net_hq, self.dtype)
+        if self.is_train:
+            self.netG.train().requires_grad_(True)
 
     def load_network(self, load_path, strict=True):
         """Load a stage-2 ``state_dict`` file (``{iter}_G.pth``) into netG."""
         cast_convs_(self.netG, torch.float32)
         res = self.load_into(self.netG, self._torchify(load_path), strict=strict)
         self._finalize()
+        self._actnorm_inited = True
         return res
 
     def load_state_dicts(self, stage2_sd=None, vqgan_sd=None):
@@ -84,6 +107,72 @@ class LLFlowModel(BaseModel):
         if vqgan_sd is not None:
             self.net_hq.load_state_dict(vqgan_sd, strict=True)
         self._finalize()
+
+    # ---------------- train ----------------
+
+    def _build_optimizer(self, train_opt):
+        """AdamW in two groups (``_label_params``): 'rrdb' with decay 1e-5, 'other'
+        with ``weight_decay_G``; betas (beta1, beta2) as the JAX model honours
+        them (the reference's torch Adam silently ran (0.9, 0.999))."""
+        self.schedule = build_schedule(train_opt)
+        labels = _label_params(self.netG)
+        groups = [{"params": [p for n, p in self.trainable_parameters() if labels[n] == label],
+                   "weight_decay": wd, "label": label}
+                  for label, wd in (("other", float(train_opt.get("weight_decay_G") or 0)),
+                                    ("rrdb", RRDB_WEIGHT_DECAY))]
+        self.optimizer = torch.optim.AdamW(
+            groups, lr=self.schedule(0),
+            betas=(float(train_opt.get("beta1") or 0.9), float(train_opt.get("beta2") or 0.99)),
+            eps=1e-8)
+        self.updates = 0  # updates applied: optax's count, the schedule's argument
+        self.weight_fl = float(opt_get(self.opt, ["train", "weight_fl"], 1) or 1)
+        self.weight_l1 = float(opt_get(self.opt, ["train", "weight_l1"], 0) or 0)
+        if self.weight_l1:
+            logging.getLogger("base").warning(
+                "stage-2 training: train.weight_l1 = %g is ignored; the loss is weight_fl * "
+                "mean(nll), as in the JAX package", self.weight_l1)
+
+    def _encode_gt(self, gt):
+        """gt [B, H, W, 3] -> its VQGAN latent, NCHW, without a graph (the JAX
+        step's ``stop_gradient``; an ordinary tensor, unlike ``inference_mode``'s)."""
+        with torch.no_grad():
+            h, _ = self.net_hq.encode(_nchw(gt, self.device))
+        return h
+
+    def initialize_actnorm(self, batch):
+        """The ActNorm data-dependent init on ``batch`` = {"LQ", "GT"}: one
+        ``normal_flow(ddinit=True)`` without a graph. Runs once."""
+        if self._actnorm_inited:
+            return
+        with torch.no_grad():
+            self.netG.normal_flow(self._encode_gt(batch["GT"]), _nchw(batch["LQ"], self.device),
+                                  ddinit=True)
+        self._actnorm_inited = True
+
+    def train_loss(self, lq, gt):
+        """weight_fl * mean(nll) on one batch, with the graph. lq, gt [B, H, W, 3]."""
+        _, nll, _ = self.netG.normal_flow(self._encode_gt(gt), _nchw(lq, self.device))
+        return self.weight_fl * nll.mean()
+
+    def optimize_parameters(self, batch, step=None):
+        """One training step on ``batch`` = {"LQ", "GT"} (the ActNorm init first, on
+        the first batch): the loss, its gradients, the update at
+        ``schedule(updates so far)``. -> the loss."""
+        if not self._actnorm_inited:
+            self.initialize_actnorm(batch)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.train_loss(batch["LQ"], batch["GT"])
+        loss.backward()
+        self._update()
+        self.log_dict = {"nll_loss": float(loss.detach())}
+        return self.log_dict["nll_loss"]
+
+    def resume_training(self, path):
+        """Restore netG and the optimizer from ``{iter}.state`` -> (epoch, iter); the
+        ActNorms were initialized by the run that saved it."""
+        epoch_iter = super().resume_training(path)
+        self._actnorm_inited = True
+        return epoch_iter
 
     # ---------------- eval ----------------
 
@@ -99,14 +188,11 @@ class LLFlowModel(BaseModel):
         dec, _, _ = self.net_hq.decode(_nchw(latent, self.device))
         return _nhwc(dec)
 
-    @torch.inference_mode()
     def encode_gt_latent(self, gt):
         """gt image [B, H, W, 3] -> its VQGAN latent [B, H/4, W/4, 3] (pre-quantization)."""
-        h, _ = self.net_hq.encode(_nchw(gt, self.device))
-        return _nhwc(h)
+        return _nhwc(self._encode_gt(gt))
 
     @torch.inference_mode()
     def get_encode_nll(self, lq, gt):
-        gt_latent = _nchw(self.encode_gt_latent(gt), self.device)
-        _, nll, _ = self.netG.normal_flow(gt_latent, _nchw(lq, self.device))
+        _, nll, _ = self.netG.normal_flow(self._encode_gt(gt), _nchw(lq, self.device))
         return float(nll.mean())

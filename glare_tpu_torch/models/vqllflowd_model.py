@@ -118,9 +118,6 @@ class VQLLFLOWDModel(BaseModel):
         for name, p in self.netG.named_parameters():
             p.requires_grad_(name.split(".", 1)[0] not in FROZEN)
 
-    def trainable_parameters(self):
-        return [(n, p) for n, p in self.netG.named_parameters() if p.requires_grad]
-
     def load_network(self, load_path, strict=True):
         """Load a stage-3 ``state_dict`` file into netG (weights are cast to the
         model's compute dtype afterwards)."""
@@ -182,38 +179,11 @@ class VQLLFLOWDModel(BaseModel):
         self.optimizer.zero_grad(set_to_none=True)
         total, (l1, percep, ssim_l) = self.train_losses(batch["LQ"], batch["GT"])
         total.backward()
-        lr = self.schedule(self.updates)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.updates += 1
+        self._update()
         self.log_dict = {"total_loss": float(total.detach()), "l1_loss": float(l1.detach()),
                          "percep_loss": float(percep.detach()), "ssim_loss": float(ssim_l.detach())}
         return (self.log_dict["total_loss"], self.log_dict["percep_loss"],
                 self.log_dict["l1_loss"], self.log_dict["ssim_loss"])
-
-    # ---------------- persistence ----------------
-
-    def save(self, iter_label):
-        return self.save_network(self.netG, "G", iter_label)
-
-    def save_training(self, epoch, iter_step):
-        names = {n for n, _ in self.trainable_parameters()}
-        params = {k: v.detach().cpu() for k, v in self.netG.state_dict().items() if k in names}
-        return self.save_training_state(epoch, iter_step, {"params": params, "updates": self.updates,
-                                                           "optimizer": self.optimizer.state_dict()})
-
-    def resume_training(self, path):
-        """Restore the trainable weights and the optimizer from ``{iter}.state``
-        -> (epoch, iter)."""
-        payload = self.load_training_state(path)
-        with torch.no_grad():
-            own = dict(self.netG.named_parameters())
-            for k, v in payload["state"]["params"].items():
-                own[k].copy_(v)
-        self.optimizer.load_state_dict(payload["state"]["optimizer"])
-        self.updates = payload["state"]["updates"]
-        return payload["epoch"], payload["iter"]
 
     # ---------------- eval ----------------
 

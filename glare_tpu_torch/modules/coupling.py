@@ -15,15 +15,24 @@ from torch import nn
 from .flow_layers import Conv2dNormed, Conv2dZeros, cat_feature, split_feature_cross, sum_per_sample
 
 
-def FNet(in_channels, out_channels, hidden_channels=64, kernel_hidden=1, n_hidden_layers=1):
-    """Conv(+ActNorm) -> ReLU -> 1x1(+ActNorm) -> ReLU -> Conv2dZeros, as a
-    ``Sequential`` so the checkpoint keys are ``0.weight``, ``2.weight``, ``4.weight``."""
-    layers = [Conv2dNormed(in_channels, hidden_channels, (3, 3)), nn.ReLU()]
-    for _ in range(n_hidden_layers):
-        layers += [Conv2dNormed(hidden_channels, hidden_channels, (kernel_hidden, kernel_hidden)),
-                   nn.ReLU()]
-    layers.append(Conv2dZeros(hidden_channels, out_channels, (3, 3)))
-    return nn.Sequential(*layers)
+class FNet(nn.Sequential):
+    """Conv(+ActNorm) -> ReLU -> 1x1(+ActNorm) -> ReLU -> Conv2dZeros, a
+    ``Sequential`` so the checkpoint keys are ``0.weight``, ``2.weight``, ``4.weight``;
+    ``forward`` passes ``ddinit`` to the ActNorms of the ``Conv2dNormed`` layers."""
+
+    def __init__(self, in_channels, out_channels, hidden_channels=64, kernel_hidden=1,
+                 n_hidden_layers=1):
+        layers = [Conv2dNormed(in_channels, hidden_channels, (3, 3)), nn.ReLU()]
+        for _ in range(n_hidden_layers):
+            layers += [Conv2dNormed(hidden_channels, hidden_channels, (kernel_hidden, kernel_hidden)),
+                       nn.ReLU()]
+        layers.append(Conv2dZeros(hidden_channels, out_channels, (3, 3)))
+        super().__init__(*layers)
+
+    def forward(self, x, ddinit=False):
+        for layer in self:
+            x = layer(x, ddinit=ddinit) if isinstance(layer, Conv2dNormed) else layer(x)
+        return x
 
 
 class CondAffineSeparatedAndCond(nn.Module):
@@ -48,37 +57,37 @@ class CondAffineSeparatedAndCond(nn.Module):
     def _split(self, z):
         return z[:, : self.channels_for_nn], z[:, self.channels_for_nn:]
 
-    def forward(self, z, logdet=None, reverse=False, ft=None):
+    def forward(self, z, logdet=None, reverse=False, ft=None, ddinit=False):
         assert z.shape[1] == self.in_channels, (z.shape, self.in_channels)
         ft = ft.to(z.dtype)
         if not reverse:
-            scale_ft, shift_ft = self._scale_shift(self.fFeatures(ft))
+            scale_ft, shift_ft = self._scale_shift(self.fFeatures(ft, ddinit=ddinit))
             z = (z + shift_ft) * scale_ft
             if logdet is not None:
                 logdet = logdet + sum_per_sample(torch.log(scale_ft))
             if self.le_curve:
-                alpha = torch.relu(self.fCurve(ft)) + self.affine_eps
+                alpha = torch.relu(self.fCurve(ft, ddinit=ddinit)) + self.affine_eps
                 if logdet is not None:
                     logdet = logdet + sum_per_sample(
                         torch.log(alpha * torch.pow(torch.abs(z), alpha - 1)) + self.affine_eps)
                 z = torch.pow(torch.abs(z), alpha) * torch.sign(z)
             z1, z2 = self._split(z)
-            scale, shift = self._scale_shift(self.fAffine(cat_feature(z1, ft)))
+            scale, shift = self._scale_shift(self.fAffine(cat_feature(z1, ft), ddinit=ddinit))
             z2 = (z2 + shift) * scale
             if logdet is not None:
                 logdet = logdet + sum_per_sample(torch.log(scale))
             z = cat_feature(z1, z2)
         else:
             z1, z2 = self._split(z)
-            scale, shift = self._scale_shift(self.fAffine(cat_feature(z1, ft)))
+            scale, shift = self._scale_shift(self.fAffine(cat_feature(z1, ft), ddinit=ddinit))
             z2 = z2 / scale - shift
             z = cat_feature(z1, z2)
             if logdet is not None:
                 logdet = logdet - sum_per_sample(torch.log(scale))
             if self.le_curve:
-                alpha = torch.relu(self.fCurve(ft)) + self.affine_eps
+                alpha = torch.relu(self.fCurve(ft, ddinit=ddinit)) + self.affine_eps
                 z = torch.pow(torch.abs(z), 1.0 / alpha) * torch.sign(z)
-            scale_ft, shift_ft = self._scale_shift(self.fFeatures(ft))
+            scale_ft, shift_ft = self._scale_shift(self.fFeatures(ft, ddinit=ddinit))
             z = z / scale_ft - shift_ft
             if logdet is not None:
                 logdet = logdet - sum_per_sample(torch.log(scale_ft))

@@ -4,8 +4,12 @@ shapes: ActNorm ``bias``/``logs`` are ``[1, C, 1, 1]``, ``Conv2dZeros.logs`` is
 ``[C, 1, 1]``, conv weights are OIHW.
 
 Conventions: ``logdet`` is a per-sample vector ``[B]`` or None; ``reverse`` is a
-plain bool. The data-dependent ActNorm initialisation belongs to training and
-is not ported yet; parameters come from a checkpoint or the seeded init.
+plain bool. Data-dependent ActNorm init: call the flow once with ``ddinit=True``
+(under ``torch.no_grad()``); each ActNorm computes its batch statistics, writes
+them into its ``bias`` / ``logs`` *and* uses them at once, so later layers see
+the output of the initialized ones (torch's lazy in-forward init, in one
+sequential pass; the JAX package writes an ``actnorm_init`` collection and merges
+it). No ``state_dict`` key is added.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..nn.layers import at_least_float32
 
 
 def pixels(x):
@@ -55,7 +61,7 @@ def cat_feature(a, b):
 
 
 class ActNorm2d(nn.Module):
-    """Per-channel learned bias + log-scale."""
+    """Per-channel learned bias + log-scale, with data-dependent init."""
 
     def __init__(self, num_features, scale=1.0):
         super().__init__()
@@ -63,8 +69,21 @@ class ActNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(1, num_features, 1, 1))
         self.logs = nn.Parameter(torch.zeros(1, num_features, 1, 1))
 
-    def forward(self, x, logdet=None, reverse=False):
+    @torch.no_grad()
+    def initialize(self, x):
+        """Set ``bias`` / ``logs`` from the float32 statistics (float64 in a float64
+        run) of ``x`` over batch and space: b = -mean(x), var = mean((x + b)^2) (the
+        population variance), logs = log(scale / (sqrt(var) + 1e-6))."""
+        xf = at_least_float32(x)
+        b = -xf.mean(dim=(0, 2, 3), keepdim=True)
+        var = ((xf + b) ** 2).mean(dim=(0, 2, 3), keepdim=True)
+        self.bias.copy_(b)
+        self.logs.copy_(torch.log(self.scale / (torch.sqrt(var) + 1e-6)))
+
+    def forward(self, x, logdet=None, reverse=False, ddinit=False):
         assert x.shape[1] == self.num_features, (x.shape, self.num_features)
+        if ddinit:
+            self.initialize(x)
         bias = self.bias.to(x.dtype)
         if not reverse:
             x = (x + bias) * torch.exp(self.logs).to(x.dtype)
@@ -107,7 +126,7 @@ def _det_and_inv(w):
 
 class InvertibleConv1x1(nn.Module):
     """1x1 invertible channel-mixing conv; logdet = log|det W| * pixels.
-    Reverse applies W^-1 (closed-form float32 adjugate at C <= 3)."""
+    Reverse applies W^-1 (closed-form adjugate at C <= 3, in float32 or float64)."""
 
     def __init__(self, num_channels):
         super().__init__()
@@ -121,8 +140,7 @@ class InvertibleConv1x1(nn.Module):
             self.weight.copy_(q)
 
     def forward(self, x, logdet=None, reverse=False):
-        w32 = self.weight.float()
-        det, w_inv = _det_and_inv(w32)
+        det, w_inv = _det_and_inv(at_least_float32(self.weight))
         dlogdet = torch.log(torch.abs(det)) * pixels(x)
         w = (w_inv if reverse else self.weight).to(x.dtype)
         z = F.conv2d(x, w.reshape(self.num_channels, self.num_channels, 1, 1))
@@ -146,9 +164,9 @@ class Conv2dNormed(nn.Module):
         with torch.no_grad():
             self.weight.normal_(0.0, self.weight_std, generator=generator)
 
-    def forward(self, x):
+    def forward(self, x, ddinit=False):
         y = F.conv2d(x, self.weight.to(x.dtype), padding=self.padding)
-        y, _ = self.actnorm(y, None, reverse=False)
+        y, _ = self.actnorm(y, None, reverse=False, ddinit=ddinit)
         return y
 
 
@@ -167,3 +185,38 @@ class Conv2dZeros(nn.Module):
     def forward(self, x):
         y = F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), padding=self.padding)
         return y * torch.exp(self.logs * self.logscale_factor).to(x.dtype)
+
+
+def squeeze2d(x, factor=2):
+    """Space-to-channel, channel order (C, fy, fx): output channel
+    ``c * factor**2 + fy * factor + fx``."""
+    if factor == 1:
+        return x
+    b, c, h, w = x.shape
+    assert h % factor == 0 and w % factor == 0, (h, w, factor)
+    x = x.reshape(b, c, h // factor, factor, w // factor, factor)
+    x = x.permute(0, 1, 3, 5, 2, 4)  # B, C, fy, fx, H/f, W/f
+    return x.reshape(b, c * factor * factor, h // factor, w // factor)
+
+
+def unsqueeze2d(x, factor=2):
+    """Inverse of :func:`squeeze2d`."""
+    if factor == 1:
+        return x
+    b, c, h, w = x.shape
+    f2 = factor ** 2
+    assert c % f2 == 0, c
+    x = x.reshape(b, c // f2, factor, factor, h, w)
+    x = x.permute(0, 1, 4, 2, 5, 3)  # B, C/f2, H, fy, W, fx
+    return x.reshape(b, c // f2, h * factor, w * factor)
+
+
+class SqueezeLayer(nn.Module):
+    def __init__(self, factor=2):
+        super().__init__()
+        self.factor = factor
+
+    def forward(self, x, logdet=None, reverse=False):
+        if not reverse:
+            return squeeze2d(x, self.factor), logdet
+        return unsqueeze2d(x, self.factor), logdet

@@ -28,15 +28,15 @@ class FlowStep(nn.Module):
         elif flow_coupling != "noCoupling":
             raise ValueError(f"coupling not found: {flow_coupling}")
 
-    def forward(self, z, logdet=None, reverse=False, ft=None):
+    def forward(self, z, logdet=None, reverse=False, ft=None, ddinit=False):
         if not reverse:
-            z, logdet = self.actnorm(z, logdet, reverse=False)
+            z, logdet = self.actnorm(z, logdet, reverse=False, ddinit=ddinit)
             z, logdet = self.invconv(z, logdet, reverse=False)
             if self.affine is not None:
-                z, logdet = self.affine(z, logdet, reverse=False, ft=ft)
+                z, logdet = self.affine(z, logdet, reverse=False, ft=ft, ddinit=ddinit)
         else:
             if self.affine is not None:
-                z, logdet = self.affine(z, logdet, reverse=True, ft=ft)
+                z, logdet = self.affine(z, logdet, reverse=True, ft=ft, ddinit=ddinit)
             z, logdet = self.invconv(z, logdet, reverse=True)
-            z, logdet = self.actnorm(z, logdet, reverse=True)
+            z, logdet = self.actnorm(z, logdet, reverse=True, ddinit=ddinit)
         return z, logdet

@@ -8,7 +8,8 @@ split disabled) this builds, per level,
 
 all at the latent resolution with 3 channels, every coupling conditioned on
 ``rrdbResults['cond_feat']``. ``encode`` walks the steps forward accumulating
-+logdet, ``decode`` walks them reversed with -logdet. Steps live in
++logdet (``ddinit=True``: the ActNorm data-dependent init on the way), ``decode``
+walks them reversed with -logdet. Steps live in
 ``self.layers`` (checkpoint keys ``layers.{i}....``).
 """
 
@@ -48,11 +49,11 @@ class FlowUpsamplerNet(nn.Module):
         self.C_out = C
 
     def forward(self, z, rrdbResults=None, logdet=None, reverse=False, epses=None, eps_std=None,
-                generator=None):
+                ddinit=False, generator=None):
         if reverse:
             return self.decode(z, rrdbResults, logdet=logdet, epses=epses, eps_std=eps_std,
                                generator=generator)
-        return self.encode(z, rrdbResults, logdet=logdet, epses=epses)
+        return self.encode(z, rrdbResults, logdet=logdet, epses=epses, ddinit=ddinit)
 
     @staticmethod
     def _ft(rrdbResults):
@@ -60,13 +61,13 @@ class FlowUpsamplerNet(nn.Module):
             return None
         return rrdbResults["cond_feat"] if isinstance(rrdbResults, dict) else rrdbResults
 
-    def encode(self, gt, rrdbResults=None, logdet=None, epses=None):
+    def encode(self, gt, rrdbResults=None, logdet=None, epses=None, ddinit=False):
         ft = self._ft(rrdbResults)
         z = gt
         eps_list = [] if isinstance(epses, list) else None
         for layer, kind in zip(self.layers, self._layer_kinds):
             if kind == "step":
-                z, logdet = layer(z, logdet, reverse=False, ft=ft)
+                z, logdet = layer(z, logdet, reverse=False, ft=ft, ddinit=ddinit)
             else:
                 z, logdet, eps = layer(z, logdet, reverse=False, ft=None)
                 if eps_list is not None:

@@ -3,15 +3,17 @@
 
 normal_flow(gt_latent, lr):
     lr_enc = ConEncoder1(lr)
-    z, logdet = flow.encode(gt_latent, cond=lr_enc)
+    z, logdet = flow.encode(gt_latent | +quant noise, cond=lr_enc)
     nll = -(logdet + logp(color_map, 0, z)) / (ln2 * pixels)
 reverse_flow(lr):
     z := lr_enc['color_map']; x = flow.decode(z, cond=lr_enc)  -> VQGAN latent
 
 Tensors are NCHW. Sub-module names are the reference checkpoint's: ``RRDB``,
-``flowUpsamplerNet``. The flow always runs in float32; ``set_compute_dtype``
-casts the convolutions of the encoder. The training-only options (``ddinit``,
-the ActNorm data-dependent init, and ``add_gt_noise``) are not ported yet.
+``flowUpsamplerNet``. The flow runs in float32 (float64 in a float64 reference
+run); ``set_compute_dtype`` casts the convolutions of the encoder. Training options of ``normal_flow``:
+``ddinit`` (the ActNorm data-dependent init, see ``flow_layers``) and
+``add_gt_noise`` (uniform dequantization noise of width 1/quant, from a given
+``noise`` tensor, and -log(quant) * pixels in the logdet).
 """
 
 from __future__ import annotations
@@ -21,14 +23,12 @@ import math
 import torch
 from torch import nn
 
-from ..nn.layers import cast_convs_
+from ..nn.layers import at_least_float32, cast_convs_
 from .condition_encoder import ConEncoder1
 from .flow_layers import GaussianDiag, pixels
 from .flow_upsampler import FlowUpsamplerNet
 
 LOG2 = math.log(2.0)
-_TRAINING = ("LLFlowVQGAN2: {} belongs to stage-2 training, which is not ported yet (a later "
-             "slice of the port)")
 
 
 class LLFlowVQGAN2(nn.Module):
@@ -55,29 +55,32 @@ class LLFlowVQGAN2(nn.Module):
     def encode_cond(self, lr, mid_feat=False):
         return self.RRDB(lr, mid_feat=mid_feat)
 
-    def normal_flow(self, gt, lr, lr_enc=None, add_gt_noise=False, ddinit=False):
-        """Returns (z, nll, logdet). gt is the VQGAN latent [B, 3, h, w]."""
-        if add_gt_noise:
-            raise NotImplementedError(_TRAINING.format("add_gt_noise=True"))
-        if ddinit:
-            raise NotImplementedError(_TRAINING.format("ddinit=True (the ActNorm init)"))
+    def normal_flow(self, gt, lr, lr_enc=None, add_gt_noise=False, ddinit=False, noise=None):
+        """Returns (z, nll, logdet). gt is the VQGAN latent [B, 3, h, w].
+        ``add_gt_noise``: z = gt + (u - 0.5) / quant with u ~ U[0, 1) the given
+        ``noise`` (gt's shape; a caller that wants fresh noise draws ``torch.rand``)."""
         if lr_enc is None:
             lr_enc = self.RRDB(lr)
         pix = pixels(gt)
-        z = gt.float()
-        logdet = torch.zeros(gt.shape[0], dtype=torch.float32, device=gt.device)
-        z, logdet = self.flowUpsamplerNet.encode(z, lr_enc, logdet=logdet)
-        mean = lr_enc["color_map"].float()
+        z = at_least_float32(gt)
+        logdet = torch.zeros(gt.shape[0], dtype=z.dtype, device=gt.device)
+        if add_gt_noise:
+            z = z + (noise.to(z) - 0.5) / self.quant
+            logdet = logdet + float(-math.log(self.quant) * pix)
+        z, logdet = self.flowUpsamplerNet.encode(z, lr_enc, logdet=logdet, ddinit=ddinit)
+        mean = lr_enc["color_map"].to(z.dtype)
         objective = logdet + GaussianDiag.logp(mean, 0.0, z)
         nll = -objective / (LOG2 * pix)
         return z, nll, logdet
 
     def reverse_flow(self, lr, lr_enc=None, eps_std=None, add_gt_noise=False):
-        """Returns (x_latent, logdet). The latent seed is the conditional colour map."""
-        if add_gt_noise:
-            raise NotImplementedError(_TRAINING.format("add_gt_noise=True"))
+        """Returns (x_latent, logdet). The latent seed is the conditional colour map;
+        ``add_gt_noise`` takes the dequantization term, -log(quant) * pixels of
+        ``lr``, out of the logdet (as the JAX package does)."""
         if lr_enc is None:
             lr_enc = self.RRDB(lr)
         logdet = torch.zeros(lr.shape[0], dtype=torch.float32, device=lr.device)
+        if add_gt_noise:
+            logdet = logdet - float(-math.log(self.quant) * pixels(lr))
         z = lr_enc["color_map"].float()
         return self.flowUpsamplerNet.decode(z, lr_enc, logdet=logdet, eps_std=eps_std)

@@ -40,6 +40,11 @@ def swish(x):
     return x * torch.sigmoid(x)
 
 
+def at_least_float32(t):
+    """``t`` in float32, or as it is when it is float64 (a float64 reference run)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 class Conv(nn.Conv2d):
     """``nn.Conv2d`` that computes in ``compute_dtype`` (None: the weight's dtype):
     input, weight and bias are cast to it at use. Optional zero init."""
@@ -72,7 +77,8 @@ class Conv(nn.Conv2d):
 
 
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm(32, eps=1e-6, affine) computed in float32, result in x's dtype.
+    """GroupNorm(32, eps=1e-6, affine) computed in float32 (float64 for a float64
+    input), result in x's dtype.
 
     ``GLARE_GN_BF16=1`` (read at construction, as the JAX module reads it) on a
     bf16 input follows flax's ``GroupNorm(dtype=bfloat16)``: statistics in
@@ -92,7 +98,8 @@ class GroupNorm32(nn.GroupNorm):
             mul = torch.rsqrt(var + self.eps) * self.weight.float().reshape(1, g, c // g, 1)
             y = (xg - mean) * mul + self.bias.float().reshape(1, g, c // g, 1)
             return y.reshape(x.shape).to(torch.bfloat16)
-        y = F.group_norm(x.float(), self.num_groups, self.weight.float(), self.bias.float(),
+        xf = at_least_float32(x)
+        y = F.group_norm(xf, self.num_groups, self.weight.to(xf.dtype), self.bias.to(xf.dtype),
                          self.eps)
         return y.to(x.dtype)
 
@@ -205,7 +212,7 @@ class AttnBlock(nn.Module):
             s = e.float().sum(dim=-1, keepdim=True)
             a = e / s.to(torch.bfloat16)
         else:
-            a = torch.softmax((q_blk @ k.transpose(1, 2)).float() * scale, dim=-1)
+            a = torch.softmax(at_least_float32(q_blk @ k.transpose(1, 2)) * scale, dim=-1)
         return (a.to(v.dtype) @ v).to(out_dtype)
 
     def forward(self, x):

@@ -130,14 +130,29 @@ def test_gaussian_diag_and_training_only_options():
     assert abs(float(GaussianDiag.logp(mean, 0.0, x)) - want) < 1e-6
     assert abs(float(GaussianDiag.logp(None, None, x)) + 0.5 * (1.25 + 2 * np.log(2 * np.pi))) < 1e-6
     net = LLFlowVQGAN2(K=1, L=1, **MINI)
-    lr, gt = torch.zeros(1, 3, 16, 16), torch.zeros(1, 3, 4, 4)
-    for kw in ({"ddinit": True}, {"add_gt_noise": True}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            net.normal_flow(gt, lr, **kw)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        net.reverse_flow(lr, add_gt_noise=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_model({**_opt(), "is_train": True}, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    lr, gt = torch.randn(2, 3, 16, 16, generator=g), torch.randn(2, 3, 4, 4, generator=g)
+    with torch.no_grad():
+        _, nll0, logdet0 = net.normal_flow(gt, lr)
+        # the ActNorm data-dependent init writes the statistics of this batch
+        first = net.flowUpsamplerNet.layers[0].actnorm
+        z, nll, logdet = net.normal_flow(gt, lr, ddinit=True)
+        assert torch.allclose(first.bias.flatten(), -gt.mean(dim=(0, 2, 3)))
+        assert not torch.equal(logdet, logdet0) and bool(torch.isfinite(nll).all())
+        # uniform dequantization noise: the logdet gains -log(quant) * pixels
+        z1, _, logdet1 = net.normal_flow(gt, lr, add_gt_noise=True,
+                                         noise=torch.rand(gt.shape, generator=g))
+        _, _, logdet2 = net.normal_flow(gt, lr, add_gt_noise=True, noise=torch.full_like(gt, 0.5))
+        assert not torch.equal(z1, z)
+        assert torch.allclose(logdet2 - logdet, torch.full((2,), -np.log(32.0) * 16), rtol=1e-5)
+        _, ld = net.reverse_flow(lr, add_gt_noise=True)
+        assert torch.allclose(ld - net.reverse_flow(lr)[1], torch.full((2,), np.log(32.0) * 256))
+    trainer = create_model({**_opt(), "is_train": True,
+                            "train": {"manual_seed": 1, "lr_G": 5e-4, "lr_scheme": "MultiStepLR"}},
+                           device="cpu")
+    assert [g["label"] for g in trainer.optimizer.param_groups] == ["other", "rrdb"]
+    assert all(p.requires_grad for p in trainer.netG.parameters())
+    assert not any(p.requires_grad for p in trainer.net_hq.parameters())
     assert set(net.encode_cond(lr)) == {"cond_feat", "color_map"}
 
 

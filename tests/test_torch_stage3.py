@@ -130,7 +130,7 @@ def test_unported_parts_raise_with_a_pointer():
     opt["is_train"] = True
     opt["train"] = {"manual_seed": 1, "lr_G": 5e-5, "mixed_precision": True}
     # ported since: bf16 training (float32 parameters, bf16 compute), the cascade, the
-    # chain op, stage-3 training and the stage-2 model build
+    # chain op, stage-3 training, the stage-2 model build and stage-2 training
     mixed = create_model(opt, device="cpu")
     assert mixed.dtype == torch.bfloat16 and hasattr(mixed, "optimizer")
     assert all(p.dtype == torch.float32 for p in mixed.netG.parameters())
@@ -142,8 +142,9 @@ def test_unported_parts_raise_with_a_pointer():
     stage2 = {**_opt("xla"), "model": "LLFlow"}
     stage2["network_G"] = {**stage2["network_G"], "which_model_G": "LLFlowVQGAN2"}
     assert type(create_model(stage2, device="cpu")).__name__ == "LLFlowModel"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_model({**stage2, "is_train": True}, device="cpu")
+    trainer = create_model({**stage2, "is_train": True, "train": {"manual_seed": 1, "lr_G": 5e-4}},
+                           device="cpu")
+    assert type(trainer).__name__ == "LLFlowModel" and hasattr(trainer, "optimizer")
 
 
 def test_get_z_and_get_sr_with_z_shapes():
