@@ -35,7 +35,10 @@ Phases, each printing one JSON line:
              column bit for bit against the Hopper forward's A block, and the
              Hopper forward at the training shapes. Both backward rows also time
              the first backward design (three kernels, built from the source
-             text kept in glare_tpu_torch/tools/dcn_train_designs.py)
+             text kept in glare_tpu_torch/tools/dcn_train_designs.py). The f32
+             forward and the float32 backward with grad_x also at the stage-1 LQ
+             shapes (C = O = 128 at 128x128 and 64 at 256x256, batch 4,
+             infinite radii) against their plain versions, timed there
   main_path  stage-3 paired inference at the full width of confs/LOL.yml
              (bf16, 620x420, dcn_impl pallas / clamp 2, seeded random weights):
              two single-image requests and one batch of two through
@@ -71,6 +74,23 @@ Phases, each printing one JSON line:
              an image; the first step's loss and gradients on the crop, card
              against CPU; the saved {k}_G.pth in an inference model, get_sr
              bit-equal
+  train_stage1_path  stage-1 HQ pretraining at the full width of
+             confs/stage1_HQ_pretrain.yml (VQWeightDehazeNet, codebook
+             [64, 1024, 512], UNet-SN on the 512-channel latent, L1 + VGG19
+             perceptual + codebook + hinge GAN, Adam, EMA; float32, 256 crop,
+             batch 4, seeded weights, synthetic images): a warm-up and three
+             timed iterations of VQDehazeModel.optimize_parameters (g step,
+             d step, EMA) that launch no kernel and no plain version, with
+             finite losses, every trainable tensor moved, each SNConv's u
+             stored once (by the d step's real forward), the EMA equal to its
+             formula; one iteration's losses and gradients on a 128x128 crop,
+             card against CPU; save -> net_g_{k}.pth -> test() bit-equal
+  train_stage1_lq_path  its LQ stage (Swin blocks, the residual warp
+             decoder; frozen_module_keywords) from the HQ phase's file: each
+             iteration exactly 2 f32 DCN forwards and 2 backward passes with
+             grad_x (the WarpBlocks' exact DCN under autograd), frozen tensors
+             bit-equal; one iteration through the kernels against the same
+             through the plain versions
 Every path is driven with the launch counts (attention and DCN: one per entry,
 see counters()) set to 0 just before and read just after; every attention launch
 of an inference path must land on the hopper entry, every DCN launch on the
@@ -1135,8 +1155,10 @@ def check_dcn_bwd():
         del x, off, mask, wgt, bias, go, y, y_ref, y_flat
         torch.cuda.empty_cache()
     mean = lambda t, key: sum(v[key] for v in t.values()) / len(t)  # noqa: E731
-    note = ("mean per launch over the two shapes one training step gives it (warp_0 x [2,128,128,256] -> 256, "
-            "warp_1 x [2,256,256,128] -> 128, G 4, R 2); library: torchvision is not installed (null)")
+    note = ("mean per launch over the two shapes one stage-3 training step gives it (warp_0 x [2,128,128,256] -> "
+            "256, warp_1 x [2,256,256,128] -> 128, G 4, R 2); by_shape also holds the stage-1 LQ step's two "
+            "('stage1 warp_*': [4,128,128,128] -> 128, [4,256,256,64] -> 64, infinite radii, the backward with "
+            "grad_x); library: torchvision is not installed (null)")
     bwd = {"name": "dcn_bwd", "route": "cuda", "source": "glare_tpu_torch/csrc/dcn_bwd.cu",
            "replaces": "glare_tpu/ops/dcn.py:185 (XLA autodiff of modulated_deform_conv_chain; "
                        "no Pallas kernel)",
@@ -1159,6 +1181,71 @@ def check_dcn_bwd():
                    "float32 kernel (entry f32_flat) in turns with it; " + note,
            "by_shape": fwd}
     return bwd, f32
+
+
+# the LQ stage of stage 1 (confs/stage1_HQ_pretrain.yml with LQ_stage, 256 crop, batch 4):
+# its two WarpBlock DCNs, exact offsets (impl xla: infinite radii), under autograd with grad_x
+S1_DCN = [("warp_0", 4, 128, 128, 128, 4, 128), ("warp_1", 4, 256, 256, 64, 4, 64)]
+
+
+def check_dcn_stage1():
+    """The f32 DCN forward and the backward with grad_x at the LQ stage's two shapes
+    (C = O = 64 is new to both kernels), infinite radii, offsets of 1.5 px spread:
+    each against its plain version (the forward within _dcn_tol; every output of the
+    backward within BWD_TOL of its largest), one launch each (the backward's pass
+    with grad_x), and timed there beside the plain versions.
+    -> ({shape: backward entry}, {shape: forward entry})."""
+    rng = np.random.default_rng(16)
+    bwd, fwd = {}, {}
+    for (wname, B, H, W, C, G, O) in S1_DCN:
+        tag = f"stage1 {wname}"
+        x, off, mask, wgt, bias = _dcn_inputs(rng, B, H, W, C, G, O, torch.float32, 1.5)
+        go = dev(rng.standard_normal((B, H, W, O)).astype(np.float32))
+        require(dcn_ops.route(x, off, wgt) == "f32", f"{tag}: not on the f32 entry")
+        before, by_entry = counters(), dict(dcn_ops.bwd_launches_by_entry)
+        got = dcn_ops.modulated_deform_conv_backward_cuda(go, x, off, mask, wgt, max_offset=None, need_x=True)
+        torch.cuda.synchronize()
+        require(moved_since(before) == {**{k: 0 for k in before}, "dcn_bwd": 1}, f"{tag}: counters")
+        require(bwd_moved_since(by_entry) == {**{k: 0 for k in by_entry}, "pass_x": 1}, f"{tag}: pass kernels")
+        want = dcn_ops.modulated_deform_conv_backward_ref(go, x, off, mask, wgt, bias, max_offset=None,
+                                                          need_x=True)
+        errs = {}
+        for name, gk, gw in zip(BWD_OUTPUTS, got, want):
+            scale = float(gw.abs().max())
+            errs[name] = {"max_abs_err": float((gk - gw).abs().max()), "max_abs_plain": scale}
+            errs[name]["rel"] = errs[name]["max_abs_err"] / max(scale, 1e-30)
+            require(bool(torch.isfinite(gk).all()) and scale > 0 and errs[name]["rel"] <= BWD_TOL,
+                    f"dcn_bwd {tag}: {name} {errs[name]}")
+        del got, want
+        ms = time_ms(lambda: dcn_ops.modulated_deform_conv_backward_cuda(go, x, off, mask, wgt, max_offset=None,
+                                                                         need_x=True))
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (x, off, mask, wgt, bias)]
+            out = dcn_ops.modulated_deform_conv_ref(*leaves, max_offset=None)
+            plain = time_ms(lambda: torch.autograd.grad(out, leaves, go, retain_graph=True), reps=3, warmup=1)
+            del out, leaves
+        torch.cuda.empty_cache()
+        b_ms, b_by = _bwd_bound(B, H, W, C, G, O, need_x=True)
+        bwd[tag] = {"shape": [B, H, W, C, G, O], "need_x": True, "radii": "inf", "ms": ms, "plain_ms": plain,
+                    "bound_ms": b_ms, "bound_by": b_by, "achieved_tflops": 4.0 * B * H * W * 9 * C * O / ms / 1e9,
+                    "outputs": errs, "max_rel_err": max(e["rel"] for e in errs.values())}
+        before = counters()
+        y = dcn_ops.modulated_deform_conv_cuda(x, off, mask, wgt, bias, max_offset=None)
+        torch.cuda.synchronize()
+        require(moved_since(before) == {**{k: 0 for k in before}, "dcn_fwd_f32": 1}, f"forward {tag}: counters")
+        y_ref = dcn_ops.modulated_deform_conv_ref(x, off, mask, wgt, bias, max_offset=None)
+        err, tol = float((y - y_ref).abs().max()), _dcn_tol(torch.float32, y_ref)
+        require(err <= tol, f"forward f32 {tag}: {err}")
+        f_ms = time_ms(lambda: dcn_ops.modulated_deform_conv_cuda(x, off, mask, wgt, bias, max_offset=None))
+        fb_ms, fb_by = _dcn_bound(B, H, W, C, G, O, 4)
+        fwd[tag] = {"shape": [B, H, W, C, G, O], "radii": "inf", "ms": f_ms, "max_abs_err": err, "tol": tol,
+                    "plain_ms": time_ms(lambda: dcn_ops.modulated_deform_conv_ref(x, off, mask, wgt, bias,
+                                                                                  max_offset=None),
+                                        reps=3, warmup=1),
+                    "bound_ms": fb_ms, "bound_by": fb_by, "achieved_tflops": 2.0 * B * H * W * 9 * C * O / f_ms / 1e9}
+        del x, off, mask, wgt, bias, go, y, y_ref
+        torch.cuda.empty_cache()
+    return bwd, fwd
 
 
 def _dcn_library_note():
@@ -1313,6 +1400,12 @@ def phase_kernels():
     hopper, first, f32_cases = check_dcn()
     bwd, f32 = check_dcn_bwd()
     f32["cases"] = f32_cases   # the main path's float32 shapes, held in check_dcn
+    s1_bwd, s1_fwd = check_dcn_stage1()   # the stage-1 LQ shapes, beside the rows' stage-3 ones
+    bwd["by_shape"].update(s1_bwd)
+    f32["by_shape"].update(s1_fwd)
+    bwd["max_abs_err"] = max([bwd["max_abs_err"]] + [e["max_abs_err"] for t in s1_bwd.values()
+                                                     for e in t["outputs"].values()])
+    f32["max_abs_err"] = max([f32["max_abs_err"]] + [t["max_abs_err"] for t in s1_fwd.values()])
     ks = [check_vq(), *check_attn(), hopper, first, *check_dcn_cascade(), bwd, f32, *check_dcn_bwd_bf16()]
     emit({"phase": "kernels", "kernels": [
         {"name": k["name"], "max_err": k["max_abs_err"], "tol": k["tol"], "kernel_ms": k["ms"],
@@ -1843,19 +1936,25 @@ def condition_offset_heads(model, batch):
     on ``batch``. The DCN biases are raised by 1: the AFT's x_vq * mean(h) /
     mean(x_vq) amplifies rounding by mean(h) / mean(x_vq)^2 where mean(x_vq) ~ 0.
     -> the largest input-dependent part measured."""
-    packs = [w.dcn for w in model.netG.deformable_decoder.warp]
-    g = torch.Generator(device="cpu").manual_seed(8)
     x_in = batch["LQ"].permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    return _condition_heads([w.dcn for w in model.netG.deformable_decoder.warp],
+                            lambda: model._pipeline(x_in))
+
+
+def _condition_heads(packs, forward):
+    """condition_offset_heads for the DCNv2Packs ``packs``, whose offsets a call of
+    ``forward`` computes (under no_grad)."""
+    g = torch.Generator(device="cpu").manual_seed(8)
     with torch.no_grad():
         for pack in packs:
             n = 2 * pack.G * pack.K   # the reference packing: the first 2*G*K channels are (dy, dx)
-            pack.conv_offset.bias[:n] = (torch.randint(-3, 3, (n,), generator=g) + 0.5).to(DEV)
+            pack.conv_offset.bias[:n] = (torch.randint(-3, 3, (n,), generator=g) + 0.5).to(pack.bias.device)
             pack.bias += 1.0
         spread = math.inf
         for _ in range(4):
             for pack in packs:
                 pack.audit_offsets = True
-            model._pipeline(x_in)
+            forward()
             spread = max(float((p.last_offsets - p.conv_offset.bias[:2 * p.G * p.K].reshape(
                 p.G, p.K, 2)).abs().max()) for p in packs)
             for pack in packs:
@@ -2450,6 +2549,424 @@ def phase_train_stage2_path():
     return path_counts, model
 
 
+# ------------------------------------------------------- stage-1 training --
+
+S1_GT, S1_BATCH = 256, 4     # confs/stage1_HQ_pretrain.yml: gt_size, batch_size_per_gpu
+S1_CROP = 128                # the card-against-CPU iteration: one 128x128 crop of one image
+S1_LOSS_TOL = 1e-4           # card against CPU, kernels against plain versions: each loss term, relative
+S1_FAULT = 1.02              # the card-against-CPU bar's control: a 2% fault in the encoder's gradient
+# the LQ stage's frozen_module_keywords: the codebook and the code decoder (PERF.md section 4)
+S1_FROZEN = ["quantize", "after_quant_group", "decoder_group", "out_conv"]
+S1_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_stage1")
+
+
+def stage1_opt(lq=False, hq_path=None):
+    """The values of confs/stage1_HQ_pretrain.yml that stage-1 training reads (the
+    port's own dict: no yaml here), at full width, nothing cut; ``lq``: the same
+    conf's LQ stage (LQ_stage, use_weight, S1_FROZEN, pretrain_network_hq)."""
+    net_g = {"type": "VQWeightDehazeNet", "gt_resolution": S1_GT, "norm_type": "gn", "act_type": "silu",
+             "use_quantize": True, "codebook_params": [[64, 1024, 512]]}
+    if lq:
+        net_g.update(LQ_stage=True, use_weight=True, frozen_module_keywords=list(S1_FROZEN))
+    return {
+        "name": "stage1_LQ" if lq else "stage1_HQ_pretrain", "model_type": "VQDehazeModel", "scale": 1,
+        "is_train": True, "manual_seed": 0, "network_g": net_g,
+        "network_d": {"type": "UNetDiscriminatorSN", "num_in_ch": 512},
+        "datasets": {"train": {"gt_size": S1_GT, "batch_size_per_gpu": S1_BATCH}},
+        "path": {"models": os.path.join(S1_DIR, "lq" if lq else "hq", "models"),
+                 "training_states": os.path.join(S1_DIR, "lq" if lq else "hq", "training_states"),
+                 "pretrain_network_hq": hq_path, "pretrain_network_g": None, "strict_load": False},
+        "train": {
+            "optim_g": {"type": "Adam", "lr": 1e-4}, "optim_d": {"type": "Adam", "lr": 1e-4},
+            "total_iter": 350000, "ema_decay": 0.999, "net_d_iters": 1, "net_d_init_iters": 0,
+            "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0, "reduction": "mean"},
+            "perceptual_opt": {"type": "PerceptualLoss", "perceptual_weight": 1.0, "style_weight": 0,
+                               "layer_weights": {"relu1_2": 1.0, "relu2_2": 1.0, "relu3_3": 1.0}},
+            "codebook_opt": {"loss_weight": 1.0},
+            "gan_opt": {"type": "GANLoss", "gan_type": "hinge", "real_label_val": 1.0,
+                        "fake_label_val": 0.0, "loss_weight": 0.1}},
+        "val": {"metrics": {"psnr": {"type": "psnr", "better": "higher"}}},
+    }
+
+
+def s1_batch(seed, lq=False, batch=S1_BATCH, size=S1_GT):
+    """Synthetic images in [0, 1] (smooth colour fields + noise), NHWC; HQ: lq == gt
+    (SingleImageDataset), LQ: a darker noisier lq beside gt (PairedImageDataset's
+    keys)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    low = torch.rand((batch, 3, size // 16, size // 16), generator=g)
+    gt = torch.nn.functional.interpolate(low, size=(size, size), mode="bilinear", align_corners=False)
+    gt = (gt + 0.05 * torch.randn(gt.shape, generator=g)).clamp(0, 1).permute(0, 2, 3, 1).contiguous()
+    out = {"gt": gt, "lq": gt, "gt_path": [f"{seed}_{i}.png" for i in range(batch)]}
+    if lq:
+        out["lq"] = (0.25 * gt + 0.02 * torch.randn(gt.shape, generator=g)).clamp(0, 1)
+    out["lq_path"] = out["gt_path"]
+    return {k: v.to(DEV) if torch.is_tensor(v) else v for k, v in out.items()}
+
+
+def condition_codebook(model, batch, seed=9):
+    """Seeded codebook at the scale of the tokens it quantizes: N(0, s^2) with s the
+    std of the quantizer's input on ``batch``. The seeded init, U(-1/1024, 1/1024),
+    puts each token's 1024 distances |z|^2 + |e|^2 - 2 z.e within ~1e-6 relative of
+    each other: every token a near-tie, which any two float32 runs flip. -> s."""
+    net = model.net_g
+    with torch.no_grad():
+        feat = net.encode_and_decode(model._nchw(batch["gt"]), quantize_only=True)[3]
+        s = float(feat.float().std())
+        emb = net.quantize_group[0].embedding.weight
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        emb.copy_((torch.randn(emb.shape, generator=g) * s).to(emb))
+    return s
+
+
+def _sn_counts(net_d):
+    """Counts each SNConv's forwards with update_stats set (the only ones that store
+    u) -> (counts dict, hook handles)."""
+    from glare_tpu_torch.sr.archs.discriminator_arch import SNConv
+
+    counts, handles = {}, []
+    for name, m in net_d.named_modules():
+        if isinstance(m, SNConv):
+            def hook(mod, args, kwargs, name=name):
+                if (args[1] if len(args) > 1 else kwargs.get("update_stats", True)):
+                    counts[name] = counts.get(name, 0) + 1
+            handles.append(m.register_forward_pre_hook(hook, with_kwargs=True))
+    return counts, handles
+
+
+def _u_state(net_d):
+    return {n: t.clone() for n, t in net_d.state_dict().items() if n.endswith(".u")}
+
+
+def _s1_iterations(model, batches, per_step, bwd_per_step, first_iter=1):
+    """A warm-up iteration and the timed ones of optimize_parameters (batches[1:]),
+    each with the launch counts exactly ``per_step`` / ``bwd_per_step`` and no
+    plain-version call, and after each: the six losses finite, every trainable
+    tensor of both nets moved but one whose gradient is exactly 0 (listed), each
+    SNConv's u stored exactly once (by the d step's
+    real forward) and changed (a 1-vector stays at +-1 once set), the EMA equal to
+    ``ema * 0.999 + params * 0.001``; frozen generator tensors bit-equal.
+    -> (iterations, counts over them, peak memory)."""
+    frozen0 = {n: p.detach().clone() for n, p in model.net_g.named_parameters() if not p.requires_grad}
+    counts, handles = _sn_counts(model.net_d)
+    iters = []
+    reset_counters()
+    try:
+        with counted_plain_versions() as plain_calls:
+            for i, batch in enumerate(batches):
+                if i == 1:
+                    torch.cuda.reset_peak_memory_stats()
+                g0 = {n: p.detach().clone() for n, p in model.net_g.named_parameters() if p.requires_grad}
+                d0 = {n: p.detach().clone() for n, p in model.net_d.named_parameters()}
+                u0, ema0 = _u_state(model.net_d), model.ema_flat.clone()
+                counts.clear()
+                before, by_entry = counters(), dict(dcn_ops.bwd_launches_by_entry)
+                logs, ms = sync_ms(lambda: model.optimize_parameters(first_iter + i, batch))
+                moved, moved_e = moved_since(before), bwd_moved_since(by_entry)
+                logs = dict(logs)
+                require(moved == per_step, f"stage-1 iteration {i}: launches {moved} != {per_step}")
+                require(moved_e == bwd_per_step, f"stage-1 iteration {i}: DCN backward {moved_e}")
+                require(plain_calls[0] == 0, f"stage-1 iteration {i}: {plain_calls[0]} plain-version calls")
+                for k in ("l_codebook", "l_pix", "l_percep", "l_g_gan", "l_d_real", "l_d_fake"):
+                    require(k in logs and math.isfinite(logs[k]), f"stage-1 iteration {i}: {k} {logs.get(k)}")
+                still, dead = [], []
+                for net, p0 in ((model.net_g, g0), (model.net_d, d0)):
+                    for n, p in net.named_parameters():
+                        if n not in p0:
+                            continue
+                        if p.grad is None or not bool(p.grad.any()):
+                            dead.append(n)   # e.g. conv9.bias: hinge gives -1 + 1 = 0 while |D| < 1
+                        elif torch.equal(p, p0[n]):
+                            still.append(n)
+                require(not still, f"stage-1 iteration {i}: tensors with a gradient that did not move: "
+                                   f"{still[:5]}")
+                u1 = _u_state(model.net_d)
+                require(set(counts) == {n[:-2] for n in u1} and set(counts.values()) == {1},
+                        f"stage-1 iteration {i}: u stored {counts}")
+                same_u = [n for n in u1 if torch.equal(u1[n], u0[n]) and not (u1[n].numel() == 1 and i > 0)]
+                require(not same_u, f"stage-1 iteration {i}: u unchanged {same_u}")
+                ema_want = ema0 * model.ema_decay + model._flat_params() * (1 - model.ema_decay)
+                ema_err = float((model.ema_flat - ema_want).abs().max() / ema_want.abs().max())
+                require(ema_err <= 1e-6, f"stage-1 iteration {i}: EMA {ema_err} from its formula")
+                iters.append({"iteration": first_iter + i, "ms": ms, "images_per_s": len(batch["gt"]) / ms * 1e3,
+                              "losses": logs, "launches": moved, "dcn_bwd_kernels": moved_e,
+                              "ema_rel_err": ema_err, "tensors_without_gradient": dead})
+    finally:
+        for h in handles:
+            h.remove()
+    for n, p in model.net_g.named_parameters():
+        if n in frozen0:
+            require(torch.equal(p, frozen0[n]), f"frozen {n} changed")
+    timed = iters[1:]
+    ms_mean = sum(t["ms"] for t in timed) / len(timed)
+    return ({"iterations": iters, "ms_per_iteration": ms_mean,
+             "images_per_s": len(batches[0]["gt"]) / ms_mean * 1e3, "frozen_tensors": len(frozen0)},
+            counters(), torch.cuda.max_memory_allocated())
+
+
+def _s1_grads(model, batch):
+    """One iteration's losses and gradients without the updates: the g step's
+    generator gradients, then the d step's discriminator gradients (real = the
+    GT's quantized latent by the same generator, or net_hq; its u updated as in
+    the iteration). -> (losses, generator grads, discriminator grads, u after)."""
+    lq, gt = model._nchw(batch["lq"]), model._nchw(batch["gt"])
+    model.optimizer_g.zero_grad(set_to_none=True)
+    model.optimizer_d.zero_grad(set_to_none=True)
+    total, losses, z_q, z_hq = model.g_losses(lq, gt, True)
+    total.backward()
+    z_gt = z_hq if model.LQ_stage else model.quantized_latent(model.net_g, gt)
+    l_d, d_losses = model.d_losses(z_gt, z_q.detach())
+    l_d.backward()
+    out = {k: float(v.detach()) for k, v in {**losses, **d_losses, "l_g_total": total}.items()}
+    g = {n: p.grad.detach().clone() for n, p in model.net_g.named_parameters() if p.grad is not None}
+    d = {n: p.grad.detach().clone() for n, p in model.net_d.named_parameters()}
+    model.optimizer_g.zero_grad(set_to_none=True)
+    model.optimizer_d.zero_grad(set_to_none=True)
+    return out, g, d, _u_state(model.net_d)
+
+
+def _s1_compare(got, want, what, exact=None):
+    """Losses within S1_LOSS_TOL relative each; u within 1e-5; every gradient within
+    STEP_GRAD_TOL of its tensor's largest (a tensor below STEP_VANISH of its net's
+    largest vanishing on both) or, only where float32 rounding dominates, by the
+    stage-ratio rule against float64: ``exact`` is the same iteration in float64
+    (the value both float32 runs approximate); rounding dominates where ``want``'s
+    own distance from it is at least a third of ``got``'s from ``want`` (largest
+    element); then ``got``'s 2-norm distance from ``exact`` may be at most
+    STAGE_RATIO x ``want``'s + STAGE_ABS_SLACK. The distances are printed before
+    they are held to the bars. -> (distances, failures)."""
+    (l_k, g_k, d_k, u_k), (l_w, g_w, d_w, u_w) = got, want
+    out = {"loss_rel": {k: abs(l_k[k] - l_w[k]) / max(abs(l_w[k]), 1e-30) for k in l_w},
+           "u_max_abs_err": max(float((u_k[n].cpu() - u_w[n].cpu()).abs().max()) for n in u_w)}
+    failures = [f"loss {k}: {l_k[k]} against {l_w[k]}" for k, e in out["loss_rel"].items() if e > S1_LOSS_TOL]
+    if out["u_max_abs_err"] > 1e-5:
+        failures.append(f"spectral u {out['u_max_abs_err']}")
+    for i, (net, gk, gw) in enumerate((("net_g", g_k, g_w), ("net_d", d_k, d_w))):
+        require(set(gk) == set(gw), f"{what}: {net} gradients of different tensors")
+        top = max(float(t.abs().max()) for t in gw.values())
+        dmax = _dists(gk, gw, top, f"{what} {net} gradient")
+        out[net] = _worst(dmax)
+        out[net + "_2norm"] = _worst(_dists(gk, gw, top, f"{what} {net} gradient", norm=True))
+        beyond = {n: e for n, e in dmax.items() if e is not None and e > STEP_GRAD_TOL}
+        rule = out[net + "_beyond_max_rule"] = {}
+        for n, e in sorted(beyond.items(), key=lambda kv: -kv[1]):
+            if exact is None:
+                failures.append(f"{net} gradient {n}: {e:.3e} of its largest")
+                continue
+            ex = {n: exact[1 + i][n]}
+            r = rule[n] = {"max_rule": e, "reference_vs_float64": _dists({n: gw[n]}, ex, top, what)[n],
+                           "2norm_vs_float64": _dists({n: gk[n]}, ex, top, what, norm=True)[n],
+                           "reference_2norm_vs_float64": _dists({n: gw[n]}, ex, top, what, norm=True)[n]}
+            if not (r["reference_vs_float64"] is not None and r["reference_vs_float64"] >= e / 3
+                    and r["2norm_vs_float64"] <= STAGE_RATIO * r["reference_2norm_vs_float64"] + STAGE_ABS_SLACK):
+                failures.append(f"{net} gradient {n}: {r}")
+    return out, failures
+
+
+def _s1_hold(got, want, what, exact=None):
+    """_s1_compare, printed, then held: any failure fails the run."""
+    out, failures = _s1_compare(got, want, what, exact)
+    emit({"compare": what, **out})
+    require(not failures, f"{what}: {failures[:4]}")
+    return out
+
+
+@contextlib.contextmanager
+def _encoder_grad_fault(net_g, scale):
+    """The control of the card-against-CPU bar: inside the block the gradient that
+    leaves the encoder's output is scaled by ``scale`` (its values unchanged): a
+    fault upstream of every encoder gradient."""
+    handle = net_g.multiscale_encoder.register_forward_hook(
+        lambda mod, args, out: out + (scale - 1.0) * (out - out.detach()))
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def _index_flips(card_model, cpu_model, gt_cpu):
+    """The crop's codebook indices on the card and on the CPU: a flip only where the
+    two codes' float64 distances (from the CPU's tokens) agree to 1e-6 relative.
+    -> (flips, worst relative gap of a flip)."""
+    with torch.no_grad():
+        out_c = cpu_model.net_g.encode_and_decode(cpu_model._nchw(gt_cpu), quantize_only=True)
+        out_k = card_model.net_g.encode_and_decode(card_model._nchw(gt_cpu.to(DEV)), quantize_only=True)
+    feat, idx_c, idx_k = out_c[3], out_c[5][0].reshape(-1), out_k[5][0].reshape(-1).cpu()
+    z = feat.permute(0, 2, 3, 1).reshape(-1, feat.shape[1]).double()
+    emb = cpu_model.net_g.quantize_group[0].embedding.weight.detach().double()
+    d = (z ** 2).sum(1, keepdim=True) + (emb ** 2).sum(1)[None] - 2 * z @ emb.t()
+    flips = (idx_c != idx_k).nonzero().flatten().tolist()
+    gaps = [float((d[t, idx_c[t]] - d[t, idx_k[t]]).abs() / d[t, idx_c[t]].abs()) for t in flips]
+    emit({"index_flips": len(flips), "tokens": len(idx_c), "flip_gaps": gaps[:8]})
+    require(all(gp <= 1e-6 for gp in gaps), f"codebook index flips beyond the near-tie rule: {gaps[:5]}")
+    return len(flips), max(gaps, default=0.0)
+
+
+def phase_train_stage1_path():
+    """Stage-1 HQ pretraining at the full width of confs/stage1_HQ_pretrain.yml,
+    float32, 256 crop, batch 4, seeded weights, synthetic images: the codebook
+    conditioned (condition_codebook); the g step's forward checked to leave u alone;
+    then the path, with the launch counts set to 0 before it and read after it: a
+    warm-up iteration and three timed iterations of VQDehazeModel.optimize_parameters
+    (_s1_iterations: no kernel and no plain version launched: the quantizer is a
+    dense float32 argmin, as in JAX). Then one iteration's losses and gradients of
+    both nets on a 128x128 crop, card against the same model on the CPU, with the
+    codebook indices; and save -> net_g_{k}.pth -> a fresh model whose test() is
+    bit-equal. -> (counts, model, the saved net_g file)."""
+    import shutil
+
+    from glare_tpu_torch.sr.models import build_model
+
+    require(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+            "TF32 is on: the float32 training path would not be float32")
+    shutil.rmtree(S1_DIR, ignore_errors=True)
+    t0 = time.time()
+    model = build_model(stage1_opt(), device="cuda")
+    build_s = time.time() - t0
+    batches = [s1_batch(100 + i) for i in range(5)]
+    code_std = condition_codebook(model, batches[0])
+    model.init_ema(model.net_g)
+    u0 = _u_state(model.net_d)
+    with torch.no_grad():
+        model.g_losses(model._nchw(batches[0]["lq"]), model._nchw(batches[0]["gt"]), True)
+    require(all(torch.equal(t, u0[n]) for n, t in _u_state(model.net_d).items()), "the g step moved u")
+    per_step = {k: 0 for k in counters()}
+    bwd_per_step = {k: 0 for k in dcn_ops.bwd_launches_by_entry}
+    summary, path_counts, peak_mem = _s1_iterations(model, batches[:4], per_step, bwd_per_step)
+
+    # one iteration on a crop, card against CPU, at the trained weights
+    cpu = build_model(stage1_opt(), device="cpu")
+    for net in ("net_g", "net_d"):
+        getattr(cpu, net).load_state_dict({k: v.cpu() for k, v in getattr(model, net).state_dict().items()})
+    cpu.cri_perceptual.load_state_dict({k: v.cpu() for k, v in model.cri_perceptual.state_dict().items()})
+    crop = {k: batches[4][k][:1, :S1_CROP, :S1_CROP] for k in ("lq", "gt")}
+    d_state = {k: v.clone() for k, v in model.net_d.state_dict().items()}
+    flips = _index_flips(model, cpu, crop["gt"].cpu())
+    got = _s1_grads(model, crop)
+    want = _s1_grads(cpu, {k: v.cpu() for k, v in crop.items()})
+    model.net_d.load_state_dict(d_state)
+    for m in (cpu.net_g, cpu.net_d, cpu.cri_perceptual):   # the same iteration in float64
+        m.double()
+    cpu.net_d.load_state_dict({k: v.cpu() for k, v in d_state.items()})
+    exact = _s1_grads(cpu, {k: v.cpu().double() for k, v in crop.items()})
+    with _encoder_grad_fault(model.net_g, S1_FAULT):
+        faulty = _s1_grads(model, crop)
+    model.net_d.load_state_dict(d_state)
+    control = _s1_compare(faulty, want, "control", exact)[1]
+    cmp = {**_s1_hold(got, want, "card against CPU", exact), "index_flips": flips[0],
+           "index_flip_worst_gap": flips[1],
+           "loss_rel_vs_float64": {k: abs(got[0][k] - v) / max(abs(v), 1e-30) for k, v in exact[0].items()},
+           "cpu_float32_vs_float64": {net: _worst(_dists(want[1 + i], exact[1 + i], max(
+               float(t.abs().max()) for t in exact[1 + i].values()), "float64 witness")) for i, net in
+               enumerate(("net_g", "net_d"))},
+           "control": {"fault": f"the gradient out of the encoder x {S1_FAULT}", "failures": len(control),
+                       "first": control[:2]},
+           "tol": f"each loss term {S1_LOSS_TOL} relative; each gradient within {STEP_GRAD_TOL} of its "
+                  f"largest (below {STEP_VANISH} of its net's largest: vanishing on both), or where float32 "
+                  "rounding dominates (the CPU's own float32 gradient at least a third as far from a float64 "
+                  f"iteration's) by the stage-ratio rule: its 2-norm distance from the float64 one at most "
+                  f"{STAGE_RATIO} x the CPU's + {STAGE_ABS_SLACK}; u 1e-5; an index may flip only where the "
+                  "float64 distances agree to 1e-6 relative; the control must fail that bar"}
+    require(control, "the control's fault passes the card-against-CPU bar")
+
+    # save -> a fresh model -> test() bit-equal
+    n_iter = summary["iterations"][-1]["iteration"]
+    model.save(0, n_iter)
+    path = os.path.join(stage1_opt()["path"]["models"], f"net_g_{n_iter}.pth")
+    fresh = build_model({**stage1_opt(), "is_train": False}, device="cuda")
+    fresh.load_network(fresh.net_g, path, strict=True)
+    probe = s1_batch(200, batch=1, size=200)["gt"][:, :, :180]
+    require(torch.equal(fresh.test(probe), model.test(probe)), "test() after the round trip differs")
+    del fresh, cpu
+    emit({"phase": "train_stage1_path",
+          "config": "confs/stage1_HQ_pretrain.yml at full width (codebook [64, 1024, 512], gn / silu, "
+                    "UNet-SN num_in_ch 512; L1 + VGG19 relu1_2/2_2/3_3 + codebook + hinge GAN 0.1; Adam 1e-4; "
+                    "EMA 0.999), float32",
+          "crop": [S1_GT, S1_GT], "batch": S1_BATCH, "model_build_s": round(build_s, 2),
+          "codebook": {"init": "N(0, s^2)", "s": code_std},
+          **summary, "launches_total": path_counts, "expected_per_step": per_step,
+          "max_memory_allocated": peak_mem, "card_vs_cpu": {"crop": [1, S1_CROP, S1_CROP], **cmp},
+          "checkpoint_round_trip": f"{os.path.basename(path)}: test() bit-equal at 200x180"})
+    return path_counts, model, path
+
+
+def phase_train_stage1_lq_path(hq_path=None):
+    """The LQ stage of the same conf (LQ_stage, use_weight, frozen_module_keywords
+    S1_FROZEN), net_hq and the starting generator from the HQ phase's net_g file
+    (pretrain_network_hq, strict=False; without the HQ phase, a seeded HQ model's),
+    the codebook usage weight seeded (N(0, 0.05^2)) so the weighted distance moves
+    the argmin, the zero-initialized warp heads given small seeded weights and set
+    off the integer grid (condition_offset_heads' rule), synthetic pairs. The path: a warm-up and three timed iterations, each
+    launching exactly 2 f32 DCN forwards and 2 backward passes with grad_x and no
+    plain version, frozen tensors bit-equal. Then one iteration's losses and
+    gradients through the kernels against the same iteration through the plain
+    versions (the DCN: autograd of modulated_deform_conv_ref)."""
+    from glare_tpu_torch.sr.models import build_model
+
+    if hq_path is None:
+        hq = build_model(stage1_opt(), device="cuda")
+        condition_codebook(hq, s1_batch(100))
+        hq_path = hq.save_network([hq.net_g.state_dict()], "g", "seeded")
+        del hq
+    t0 = time.time()
+    model = build_model(stage1_opt(lq=True, hq_path=hq_path), device="cuda")
+    build_s = time.time() - t0
+    net = model.net_g
+    require(net.LQ_stage and torch.equal(net.quantize_group[0].embedding.weight,
+                                         model.net_hq.quantize_group[0].embedding.weight),
+            "the LQ generator did not start from the HQ file")
+    g = torch.Generator(device="cpu").manual_seed(12)
+    with torch.no_grad():
+        w = net.quantize_group[0].weight
+        w.copy_((0.05 * torch.randn(w.shape, generator=g)).to(w))
+    batches = [s1_batch(300 + i, lq=True) for i in range(5)]
+    packs = [wb.dcn for wb in net.multiscale_decoder.warp]
+    with torch.no_grad():  # the zero-initialized heads get small seeded weights (temper_offset_heads' rule)
+        for pack in packs:
+            co = pack.conv_offset
+            co.weight.copy_((0.02 * torch.randn(co.weight.shape, generator=g)).to(co.weight))
+            co.bias.copy_((0.5 * torch.randn(co.bias.shape, generator=g)).to(co.bias))
+    spread = _condition_heads(packs, lambda: net.encode_and_decode(model._nchw(batches[0]["lq"])))
+    model.init_ema(net)
+    for pack in packs:
+        require(pack.impl == "xla", "the LQ warp is not the exact DCN")
+    per_step = {**{k: 0 for k in counters()}, "dcn_fwd_f32": 2, "dcn_bwd": 2}
+    bwd_per_step = {**{k: 0 for k in dcn_ops.bwd_launches_by_entry}, "pass_x": 2}
+    summary, path_counts, peak_mem = _s1_iterations(model, batches[:4], per_step, bwd_per_step)
+    shapes = [p.last_shapes for p in packs]
+
+    # one iteration: the kernels against the plain versions, same weights and batch
+    d_state = {k: v.clone() for k, v in model.net_d.state_dict().items()}
+    for pack in packs:
+        pack.audit_offsets = True
+    got = _s1_grads(model, batches[4])
+    gap_k = min(float((p.last_offsets - p.last_offsets.round()).abs().min()) for p in packs)
+    model.net_d.load_state_dict(d_state)
+    with plain_versions():
+        before = counters()
+        want = _s1_grads(model, batches[4])
+        torch.cuda.synchronize()
+        require(counters() == before, "the plain-version iteration launched a kernel")
+    gap_p = min(float((p.last_offsets - p.last_offsets.round()).abs().min()) for p in packs)
+    for pack in packs:
+        pack.audit_offsets, pack.last_offsets = False, None
+    require(min(gap_k, gap_p) > 0.02, f"offsets within {min(gap_k, gap_p)} px of the integer grid")
+    cmp = {**_s1_hold(got, want, "kernels against plain versions"), "offset_grid_gap": [gap_k, gap_p],
+           "tol": f"each loss term {S1_LOSS_TOL} relative; each gradient within {STEP_GRAD_TOL} of its "
+                  f"largest (below {STEP_VANISH} of its net's largest: vanishing on both); u 1e-5"}
+    emit({"phase": "train_stage1_lq_path",
+          "config": "confs/stage1_HQ_pretrain.yml with LQ_stage, use_weight (usage weight N(0, 0.05^2)), "
+                    f"frozen_module_keywords {S1_FROZEN}, net_hq and net_g from the HQ phase's file; the "
+                    "warp DCNs exact (impl xla) under autograd: f32 forward + dcn_bwd_pass with grad_x",
+          "crop": [S1_GT, S1_GT], "batch": S1_BATCH, "model_build_s": round(build_s, 2),
+          "hq_file": os.path.basename(hq_path), "dcn_shapes": shapes,
+          "offset_heads": {"bias": "half-integers in [-2.5, 2.5]", "input_dependent_px": spread, "dcn_bias": "+1"},
+          **summary, "launches_total": path_counts, "expected_per_step": per_step,
+          "expected_bwd_per_step": bwd_per_step, "max_memory_allocated": peak_mem,
+          "kernel_vs_plain_iteration": cmp})
+    return path_counts, model
+
+
 def _category(name):
     n = name.lower()
     for key, cat in (("attn_hopper_kernel", "attention (this repo)"),
@@ -2467,6 +2984,17 @@ def _category(name):
         if key in n:
             return cat
     return "other"
+
+
+@contextlib.contextmanager
+def _cudnn_benchmark():
+    """cuDNN picks each convolution's algorithm by timing them (the port leaves the
+    heuristic choice on): for the --profile comparison only."""
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = False
 
 
 def phase_profile(fn, what):
@@ -2514,7 +3042,7 @@ PATHS = {"vq_argmin": "main_path", "attn_hopper": "main_path", "attn_wmma": None
 # a row whose launches are another row's counter (the same entry on another path)
 COUNTER_OF = {"dcn_hopper_train": "dcn_hopper"}
 ALL_PHASES = ("device,build,kernels,main_path,hybrid_path,stage2_path,train_path,train_path_bf16,"
-              "train_stage2_path")
+              "train_stage2_path,train_stage1_path,train_stage1_lq_path")
 
 
 def main():
@@ -2522,8 +3050,9 @@ def main():
     ap.add_argument("--phases", default=ALL_PHASES,
                     help="comma list; the last line is printed only when all of them ran")
     ap.add_argument("--profile", action="store_true",
-                    help="after main_path, trace one get_sr (after train_path, train_path_bf16 and "
-                         "train_stage2_path, one training step) with torch.profiler and print device "
+                    help="after main_path, trace one get_sr (after train_path, train_path_bf16, "
+                         "train_stage2_path and the two stage-1 paths, one training step; the stage-1 "
+                         "iterations also with cudnn.benchmark) with torch.profiler and print device "
                          "time by kernel category")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -2568,6 +3097,29 @@ def main():
             batch = train_batch(95, S2_BATCH, S2_GT)
             phase_profile(lambda: model.optimize_parameters(batch),
                           "one stage-2 training step, batch 4, 320x320, float32")
+        del model
+        torch.cuda.empty_cache()
+    hq_path = None
+    if "train_stage1_path" in phases:
+        counts["train_stage1_path"], model, hq_path = phase_train_stage1_path()
+        if args.profile:
+            batch = s1_batch(150)
+            phase_profile(lambda: model.optimize_parameters(1000, batch),
+                          "one stage-1 HQ iteration, batch 4, 256x256, float32")
+            with _cudnn_benchmark():
+                phase_profile(lambda: model.optimize_parameters(1001, batch),
+                              "the same with torch.backends.cudnn.benchmark (convolution algorithms timed)")
+        del model
+        torch.cuda.empty_cache()
+    if "train_stage1_lq_path" in phases:
+        counts["train_stage1_lq_path"], model = phase_train_stage1_lq_path(hq_path)
+        if args.profile:
+            batch = s1_batch(350, lq=True)
+            phase_profile(lambda: model.optimize_parameters(1000, batch),
+                          "one stage-1 LQ iteration, batch 4, 256x256, float32")
+            with _cudnn_benchmark():
+                phase_profile(lambda: model.optimize_parameters(1001, batch),
+                              "the same with torch.backends.cudnn.benchmark (convolution algorithms timed)")
         del model
     if any(ph not in phases for ph in ALL_PHASES.split(",")):
         emit({"partial": True, "phases": phases, "seconds": round(time.time() - t_start, 1)})

@@ -56,8 +56,8 @@ def main(stage=3, argv=None):
     args = parser.parse_args(argv)
     if args.stage not in STAGE_MODEL:
         raise NotImplementedError(
-            f"stage-{args.stage} training is not ported yet (ROADMAP.md, queue 1); "
-            "glare_tpu_torch trains stages 2 and 3")
+            f"--stage {args.stage}: this CLI trains stages 2 and 3; stage 1 (the codebook "
+            "framework) trains with `python -m glare_tpu_torch.sr.train -opt CONF`")
     device = resolve_device(args.device)
     opt = parse(args.opt or f"./confs/train_stage{args.stage}_LOL.yml", is_train=True)
     if opt["model"] != STAGE_MODEL[args.stage]:

@@ -1,12 +1,15 @@
 """Weights carried across: flax param trees -> torch ``state_dict``s.
 
 ``flax_to_torch_vqgan(params)``, ``flax_to_torch_stage2(params)``,
-``flax_to_torch_stage3(params)`` and ``flax_to_torch_vgg16(params)`` (the
-perceptual loss's ``VGG16Features``) take nested
+``flax_to_torch_stage3(params)``, ``flax_to_torch_vgg16(params)`` (the
+perceptual loss's ``VGG16Features``), ``flax_to_torch_stage1(params,
+spectral=None)`` (the stage-1 ``VQWeightDehazeNet`` or ``UNetDiscriminatorSN``)
+and ``flax_to_torch_vgg(params)`` (``sr/archs/vgg_arch.VGGFeatureExtractor``) take nested
 dicts of numpy arrays (what ``flax.serialization.to_state_dict`` or
 ``jax.tree_util.tree_map(np.asarray, params)`` give) and return a ``state_dict``
-of torch tensors under the reference PyTorch names. They are the inverses of the
-checkpoint converters in ``tools/torch2flax.py``:
+of torch tensors under the reference PyTorch names. The first three are the
+inverses of the checkpoint converters in ``tools/torch2flax.py`` (which has no
+stage-1 converter; the stage-1 names are documented at ``flax_to_torch_stage1``):
 
   conv kernel  HWIO -> OIHW
   ``GroupNorm_0/{scale,bias}`` -> ``norm.{weight,bias}``
@@ -186,4 +189,137 @@ def flax_to_torch_vgg16(params):
     sd = {}
     for i in range(7):
         _put_conv(sd, f"convs.{i}", params[f"conv_{i}"])
+    return sd
+
+
+# ------------------------------------------------------------------ stage 1 --
+
+_DOWN = re.compile(r"^down_(\d+)_(conv|res1|res2)$")
+_UP = re.compile(r"^up_(\d+)_(conv|res1|res2)$")
+_SLOT = {"conv": 0, "res1": 1, "res2": 2}  # order inside a (conv, ResBlock, ResBlock) run
+
+
+def _put_dense(sd, name, node):
+    sd[f"{name}.weight"] = _t(np.asarray(node["kernel"]).T)
+    sd[f"{name}.bias"] = _t(node["bias"])
+
+
+def _put_layernorm(sd, name, node):
+    sd[f"{name}.weight"] = _t(node["scale"])
+    sd[f"{name}.bias"] = _t(node["bias"])
+
+
+def _put_ridcp_resblock(sd, name, node):
+    """JAX ResBlock (norm1, conv1, norm2, conv2; gn) -> ``conv.{0,2,3,5}``."""
+    for norm, i in (("norm1", 0), ("norm2", 3)):
+        if "GroupNorm32_0" not in node[norm]:
+            raise NotImplementedError("flax_to_torch_stage1: norm_type gn only (in / none have no "
+                                      "parameters; bn is not converted)")
+        _put_norm(sd, f"{name}.conv.{i}.norm", node[norm]["GroupNorm32_0"])
+    _put_conv(sd, f"{name}.conv.2", node["conv1"])
+    _put_conv(sd, f"{name}.conv.5", node["conv2"])
+
+
+def _put_rstb(sd, name, node):
+    for key, blk in node["residual_group"].items():
+        b = f"{name}.residual_group.blocks.{int(key.split('_')[1])}"
+        _put_layernorm(sd, f"{b}.norm1", blk["norm1"])
+        _put_layernorm(sd, f"{b}.norm2", blk["norm2"])
+        _put_dense(sd, f"{b}.attn.qkv", blk["attn"]["qkv"])
+        _put_dense(sd, f"{b}.attn.proj", blk["attn"]["proj"])
+        sd[f"{b}.attn.relative_position_bias_table"] = _t(blk["attn"]["relative_position_bias_table"])
+        _put_dense(sd, f"{b}.mlp.fc1", blk["mlp"]["fc1"])
+        _put_dense(sd, f"{b}.mlp.fc2", blk["mlp"]["fc2"])
+    if "conv" in node:
+        _put_conv(sd, f"{name}.conv", node["conv"])
+    else:  # 3conv: conv_0 / conv_1 / conv_2 between LeakyReLUs
+        for j in range(3):
+            _put_conv(sd, f"{name}.conv.{2 * j}", node[f"conv_{j}"])
+
+
+def _put_stage1_block(sd, prefix, first, kind, node):
+    """One of (conv, res1, res2) of a Sequential whose conv is at index ``first``."""
+    put = _put_conv if kind == "conv" else _put_ridcp_resblock
+    put(sd, f"{prefix}.{first + _SLOT[kind]}", node)
+
+
+def flax_to_torch_stage1(params, spectral=None):
+    """flax ``VQWeightDehazeNet`` params -> the port's ``state_dict``; or, for a
+    tree with ``conv0`` .. ``conv9``, flax ``UNetDiscriminatorSN`` params (and
+    its ``spectral`` collection's ``u``) -> the port's.
+
+    Names (JAX -> port; the port's follow the RIDCP reference):
+      multiscale_encoder/in_conv                -> multiscale_encoder.in_conv
+      multiscale_encoder/down_{i}_{conv,res1,res2} -> multiscale_encoder.blocks.{i}.{0,1,2}
+      multiscale_encoder/swin_layers/swin_blk_{j}  -> multiscale_encoder.swin_blks.swin_blks.{j}
+          residual_group/block_{k}/{norm1,attn/{qkv,proj,relative_position_bias_table},norm2,mlp/{fc1,fc2}}
+                                                -> residual_group.blocks.{k}.<same> (Dense kernel^T)
+          conv | conv_{0,1,2}                   -> conv | conv.{0,2,4}
+      a ResBlock's norm1 / conv1 / norm2 / conv2 -> conv.0.norm / conv.2 / conv.3.norm / conv.5
+      quantize_group_{s}/{embedding, weight}    -> quantize_group.{s}.{embedding.weight, weight}
+      before_quant_group_{s}                    -> before_quant_group.{s}
+      after_quant_group_{s}/conv                -> after_quant_group.{s}.conv
+      decoder_group_{i}/{conv,res1,res2}        -> decoder_group.{i}.block.{1,2,3}
+      multiscale_decoder/up_{i}_{conv,res1,res2} -> multiscale_decoder.upsampler.{i}.{1,2,3}
+      multiscale_decoder/warp_{i}/offset        -> multiscale_decoder.warp.{i}.offset
+      multiscale_decoder/warp_{i}/dcn           -> multiscale_decoder.warp.{i}.dcn (the
+                                                   ``conv_offset`` channels permuted as in stage 3)
+      out_conv, residual_conv                   -> the same
+      conv_semantic                             -> conv_semantic.0
+      discriminator conv{i}/{kernel,bias}, spectral conv{i}/u -> conv{i}.{weight,bias,u}
+    Conv kernels HWIO -> OIHW."""
+    sd = {}
+    if "conv0" in params:
+        for key, node in params.items():
+            _put_conv(sd, key, node)
+            if spectral is not None:
+                sd[f"{key}.u"] = _t(spectral[key]["u"])
+        return sd
+    for key, node in params.items():
+        if key == "multiscale_encoder":
+            for k, sub in node.items():
+                m = _DOWN.match(k)
+                if m:
+                    _put_stage1_block(sd, f"{key}.blocks.{m.group(1)}", 0, m.group(2), sub)
+                elif k == "in_conv":
+                    _put_conv(sd, f"{key}.in_conv", sub)
+                elif k == "swin_layers":
+                    for blk, rstb in sub.items():
+                        _put_rstb(sd, f"{key}.swin_blks.swin_blks.{int(blk.split('_')[-1])}", rstb)
+        elif key == "multiscale_decoder":
+            for k, sub in node.items():
+                m = _UP.match(k)
+                if m:
+                    _put_stage1_block(sd, f"{key}.upsampler.{m.group(1)}", 1, m.group(2), sub)
+                elif k.startswith("warp_"):
+                    w = f"{key}.warp.{int(k.split('_')[1])}"
+                    _put_conv(sd, f"{w}.offset", sub["offset"])
+                    _put_dcnpack(sd, f"{w}.dcn", sub["dcn"])
+        elif key.startswith("decoder_group_"):
+            for k, sub in node.items():
+                _put_stage1_block(sd, f"decoder_group.{int(key.split('_')[-1])}.block", 1, k, sub)
+        elif key.startswith("quantize_group_"):
+            s_ = int(key.split("_")[-1])
+            sd[f"quantize_group.{s_}.embedding.weight"] = _t(node["embedding"])
+            sd[f"quantize_group.{s_}.weight"] = _t(node["weight"])
+        elif key.startswith("before_quant_group_"):
+            _put_conv(sd, f"before_quant_group.{int(key.split('_')[-1])}", node)
+        elif key.startswith("after_quant_group_"):
+            _put_conv(sd, f"after_quant_group.{int(key.split('_')[-1])}.conv", node["conv"])
+        elif key in ("out_conv", "residual_conv"):
+            _put_conv(sd, key, node)
+        elif key == "conv_semantic":
+            _put_conv(sd, "conv_semantic.0", node)
+        else:
+            raise KeyError(f"flax_to_torch_stage1: unknown subtree {key!r}")
+    return sd
+
+
+def flax_to_torch_vgg(params):
+    """flax ``VGGFeatureExtractor`` params (``{name: {kernel, bias}}``, optionally
+    under ``"params"``) -> the port's ``{vgg_net.<name>.weight / .bias}``."""
+    params = params.get("params", params)
+    sd = {}
+    for name, node in params.items():
+        _put_conv(sd, f"vgg_net.{name}", node)
     return sd

@@ -1,0 +1,30 @@
+"""Dataset registry and loader factory (counterpart of ``glare_tpu/sr/data/__init__.py``;
+reference: basicsr/data/__init__.py), on the port's ``data/loader.py``.
+
+One process, one device: there is no ``EnlargedSampler`` (rank-sharded
+sampling belongs to data parallelism, ROADMAP.md queue 1, item 2), and
+``prefetch_mode`` is not honoured (batches are built in the training loop).
+"""
+
+from ...data.loader import DataLoader
+from ..registry import DATASET_REGISTRY, auto_import
+
+auto_import(__name__, "_dataset")
+
+
+def build_dataset(dataset_opt):
+    return DATASET_REGISTRY.get(dataset_opt["type"])(dict(dataset_opt))
+
+
+def build_dataloader(dataset, dataset_opt, seed=0):
+    """Training: batches of ``batch_size_per_gpu`` (or ``batch_size``), shuffled
+    unless ``use_shuffle`` is false, the last short batch dropped; else one by one."""
+    if dataset_opt.get("phase", "train") == "train":
+        return DataLoader(
+            dataset,
+            batch_size=dataset_opt.get("batch_size_per_gpu") or dataset_opt.get("batch_size") or 1,
+            shuffle=bool(dataset_opt.get("use_shuffle", True)),
+            drop_last=True,
+            seed=seed,
+        )
+    return DataLoader(dataset, batch_size=1, shuffle=False, drop_last=False, seed=seed)

@@ -14,7 +14,7 @@ import pytest
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PKG = os.path.join(ROOT, "glare_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "glare_tpu"}
-LAZY_ONLY = {"yaml", "cv2", "pandas", "triton"}
+LAZY_ONLY = {"yaml", "cv2", "pandas", "triton", "lmdb", "tensorboard"}
 
 
 def _sources():
@@ -42,7 +42,9 @@ def test_sources_found():
     assert {"chip_smoke.py", "glare_tpu_torch/ops/_build.py", "glare_tpu_torch/ops/dcn.py",
             "glare_tpu_torch/modules/llflow_vqgan2.py", "glare_tpu_torch/models/llflow_model.py",
             "glare_tpu_torch/cli/infer_paired.py", "glare_tpu_torch/cli/infer_unpaired.py",
-            "glare_tpu_torch/cli/test_stages.py", "glare_tpu_torch/tools/dcn_train_designs.py"} <= rel
+            "glare_tpu_torch/cli/test_stages.py", "glare_tpu_torch/tools/dcn_train_designs.py",
+            "glare_tpu_torch/sr/train.py", "glare_tpu_torch/sr/models/vq_model.py",
+            "glare_tpu_torch/sr/archs/discriminator_arch.py"} <= rel
     # every kernel source and header the build compiles (python3 chip_smoke.py builds them all)
     from glare_tpu_torch.ops import _build
 
@@ -79,7 +81,7 @@ def test_no_jax_and_nothing_of_the_jax_package(path):
     tree = ast.parse(open(path).read(), path)
     assert not (_imports(tree, top_level_only=False) & FORBIDDEN), path
     assert not (_imports(tree, top_level_only=True) & LAZY_ONLY), \
-        f"{path}: yaml/cv2/pandas/triton must be imported inside the function that uses them"
+        f"{path}: yaml/cv2/pandas/triton/lmdb/tensorboard must be imported inside the function that uses them"
 
 
 def test_no_library_kernels_on_any_path_of_the_port():
@@ -96,17 +98,27 @@ def test_no_library_kernels_on_any_path_of_the_port():
 def test_import_every_module_without_optional_packages_or_gpu():
     code = r"""
 import importlib, os, pkgutil, sys
-for name in ("yaml", "cv2", "pandas", "triton", "jax", "flax", "optax"):
+for name in ("yaml", "cv2", "pandas", "triton", "lmdb", "tensorboard", "jax", "flax", "optax"):
     sys.modules[name] = None          # any import of these now raises ImportError
 os.environ["CUDA_VISIBLE_DEVICES"] = ""
 import glare_tpu_torch, torch
 assert torch.backends.cuda.matmul.allow_tf32 is False
 assert torch.backends.cudnn.allow_tf32 is False
-n = 0
+n, sr = 0, set()
 for m in pkgutil.walk_packages(glare_tpu_torch.__path__, "glare_tpu_torch."):
     importlib.import_module(m.name)
     n += 1
+    if m.name.startswith("glare_tpu_torch.sr."):
+        sr.add(m.name)
 assert "glare_tpu" not in sys.modules
+# the stage-1 framework's every module, registries filled by their auto-import
+assert {"glare_tpu_torch.sr.train", "glare_tpu_torch.sr.test", "glare_tpu_torch.sr.models.vq_model",
+        "glare_tpu_torch.sr.archs.discriminator_arch", "glare_tpu_torch.sr.archs.swin",
+        "glare_tpu_torch.sr.data.paired_image_dataset", "glare_tpu_torch.sr.utils.file_client",
+        "glare_tpu_torch.sr.metrics"} <= sr, sorted(sr)
+from glare_tpu_torch.sr.registry import ARCH_REGISTRY, DATASET_REGISTRY, MODEL_REGISTRY
+assert {"VQWeightDehazeNet", "UNetDiscriminatorSN"} <= set(ARCH_REGISTRY.keys())
+assert "VQDehazeModel" in MODEL_REGISTRY and "SingleImageDataset" in DATASET_REGISTRY
 print("imported", n)
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -493,5 +493,5 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
     # --stage 2 trains the stage-2 model (tests/test_torch_train_stage2.py), not this conf's
     with pytest.raises(ValueError, match="--stage 2 trains model 'LLFlow'"):
         train.main(argv=["--stage", "2", "--opt", str(conf), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="glare_tpu_torch.sr.train"):
         train.main(argv=["--stage", "1", "--opt", str(conf), "--device", "cpu"])

@@ -39,6 +39,10 @@ def _fill(path, shape, rng):
         return rng.standard_normal(shape)
     if name == "w":
         return np.full(shape, -0.8) + 0.1 * rng.standard_normal(shape)
+    if name == "relative_position_bias_table":    # Swin: a bias that visibly shapes attention
+        return 0.5 * rng.standard_normal(shape)
+    if name == "u":                               # spectral norm's power-iteration vector
+        return rng.standard_normal(shape)
     raise KeyError(f"no fill rule for parameter {'/'.join(path)} {shape}")
 
 
