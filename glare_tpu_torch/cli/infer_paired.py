@@ -4,7 +4,7 @@
 
 Counterpart of ``glare_tpu/cli/infer_paired.py``, same per-image protocol:
 reflect pad (bottom 20, left 20), /255 + log transform, stage-3 forward, crop
-back, gray-mean brightness adjust, PSNR/SSIM, per-image CSV + metrics.txt.
+back, gray-mean brightness adjust, PSNR/SSIM/LPIPS, per-image CSV + metrics.txt.
 Runs on ``cuda`` unless ``--device cpu`` is given; with no GPU and no explicit
 ``--device cpu`` it raises.
 
@@ -14,9 +14,14 @@ same-shape images (``auto_configure_dcn``); and every batch goes through
 :func:`enhance_exact`, which re-dispatches and re-runs a batch whose DCN
 overflow counters are not zero, so that the shipped output stays exact DCNv2.
 
+The per-image step works on arrays (:func:`prep`, then the model through
+:func:`enhance_exact`, then :func:`measure_output`), so that other callers run
+the protocol without file IO. LPIPS runs on the model's device
+(``measure.Measure``); without its weights (``GLARE_LPIPS_NPZ``) the column is
+NaN with a note.
+
 Weights: torch ``state_dict`` files beside the paths the conf names
 (``model_path`` / ``path.pretrained_vqgan`` with the extension ``.pth``).
-LPIPS is not computed yet (its network is not ported).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from collections import OrderedDict
 
 import numpy as np
 
+from ..measure import Measure
 from ..models import create_model
 from ..options import dict_to_nonedict, parse
 from ..utils.imgproc import hiseq_color_cv2_img, impad, imread, imwrite, preprocess_padded
@@ -118,6 +124,38 @@ def enhance_exact(model, lr_b, tag=""):
     return sr_b, ov
 
 
+def prep(lr, opt):
+    """uint8 HWC RGB low-light image -> the model's input: reflect pad (bottom 20,
+    left 20), /255, the log transform when ``datasets.train.log_low``; the
+    histogram-equalised image instead of it (``histeq_as_input``) or beside it
+    (``concat_histeq``) when the conf asks. -> (float32 [H+20, W+20, C], H)."""
+    apply_log = bool(opt_get(opt, ["datasets", "train", "log_low"], False))
+    his = hiseq_color_cv2_img(lr) if opt.get("histeq_as_input") or opt.get("concat_histeq") else None
+    if opt.get("histeq_as_input", False):
+        lr = his
+    lr_t = preprocess_padded(lr, bottom=20, left=20, apply_log=apply_log)
+    if opt.get("concat_histeq", False):
+        his_t = impad(his, bottom=20, left=20).astype(np.float32) / 255.0
+        lr_t = np.concatenate([lr_t, his_t], axis=-1)
+    return lr_t, lr.shape[0]
+
+
+def measure_output(sr, h, hr, measure):
+    """One image's metrics from the model's padded output ``sr`` (float
+    [H+20, W+20, 3]): crop the pad back, clip to [0, 1], gray-mean adjust to the
+    target ``hr`` (uint8 HWC RGB), then PSNR, SSIM and LPIPS (``measure``'s).
+    -> (the adjusted image as uint8, OrderedDict PSNR / SSIM / LPIPS)."""
+    restored = np.clip(sr[:h, 20:, :], 0, 1)
+    target = hr.astype(np.float64) / 255.0
+    restored = gray_mean_adjust(restored, target)
+    out = img_as_ubyte(restored)
+    meas = OrderedDict()
+    meas["PSNR"] = PSNR(target, restored)
+    meas["SSIM"] = calculate_ssim(img_as_ubyte(target), out)
+    meas["LPIPS"] = measure.lpips(out, img_as_ubyte(target))
+    return out, meas
+
+
 def main(default_conf="./confs/LOL.yml"):
     import pandas as pd
 
@@ -141,32 +179,19 @@ def main(default_conf="./confs/LOL.yml"):
     print(f"Out dir: {test_dir}")
     path_out_measures_final = os.path.join(test_dir, f"{conf}.csv")
     df = None
+    measure = Measure(device=model.device)
 
-    apply_log = bool(opt_get(opt, ["datasets", "train", "log_low"], False))
-
-    def prep(lr_path):
-        lr = imread(lr_path)
-        his = hiseq_color_cv2_img(lr)
-        if opt.get("histeq_as_input", False):
-            lr = his
-        h, w, _ = lr.shape
-        lr_t = preprocess_padded(lr, bottom=20, left=20, apply_log=apply_log)
-        if opt.get("concat_histeq", False):
-            his_t = impad(his, bottom=20, left=20).astype(np.float32) / 255.0
-            lr_t = np.concatenate([lr_t, his_t], axis=-1)
-        return lr_t, h
-
-    audit_on_sample(model, opt, [prep(p)[0] for p in lr_paths[:4]])
+    audit_on_sample(model, opt, [prep(imread(p), opt)[0] for p in lr_paths[:4]])
 
     t0 = time.time()
     n_images = 0
     i = 0
     while i < len(lr_paths):
         # fuse same-shape consecutive images into one device call
-        group = [(lr_paths[i], hr_paths[i], *prep(lr_paths[i]))]
+        group = [(lr_paths[i], hr_paths[i], *prep(imread(lr_paths[i]), opt))]
         i += 1
         while len(group) < args.batch and i < len(lr_paths):
-            lr_t, h = prep(lr_paths[i])
+            lr_t, h = prep(imread(lr_paths[i]), opt)
             if lr_t.shape != group[0][2].shape:
                 break
             group.append((lr_paths[i], hr_paths[i], lr_t, h))
@@ -176,18 +201,10 @@ def main(default_conf="./confs/LOL.yml"):
         sr_b = enhance_exact(model, lr_b, tag=group[0][0])[0].cpu().numpy()
 
         for (lr_path, hr_path, lr_t, h), sr in zip(group, sr_b):
-            hr = imread(hr_path)
-            sr = sr[:h, 20:, :]  # crop the pad back
-            restored = np.clip(sr, 0, 1)
-            target = hr.astype(np.float64) / 255.0
-            restored = gray_mean_adjust(restored, target)
+            out, metrics = measure_output(sr, h, imread(hr_path), measure)
             n_images += 1
-
-            meas = OrderedDict(conf=conf, name=os.path.basename(hr_path))
-            meas["PSNR"] = PSNR(target, restored)
-            meas["SSIM"] = calculate_ssim(img_as_ubyte(target), img_as_ubyte(restored))
-
-            imwrite(os.path.join(test_dir, os.path.basename(hr_path)), img_as_ubyte(restored))
+            meas = OrderedDict(conf=conf, name=os.path.basename(hr_path), **metrics)
+            imwrite(os.path.join(test_dir, os.path.basename(hr_path)), out)
             print(format_measurements(meas))
             df = pd.DataFrame([meas]) if df is None else pd.concat([pd.DataFrame([meas]), df])
 
@@ -205,7 +222,8 @@ def format_measurements(meas):
     s_out = []
     for k, v in meas.items():
         if isinstance(v, float):
-            v = f"{v:0.4f}"
+            # per image, not just per run: a NaN column hides that LPIPS had no weights
+            v = f"{v:0.4f}" if np.isfinite(v) else "NaN (weights missing; set GLARE_LPIPS_NPZ)"
         s_out.append(f"{k}: {v}")
     return ", ".join(s_out)
 

@@ -4,8 +4,9 @@
     python -m glare_tpu_torch.cli.test_stages --stage 2 [--opt CONF] [--models_dir DIR] [--device cpu]
 
 Iterates every ``*_G.pth`` under an experiment's models dir, runs the conf's
-evaluation set, reports adjusted + unadjusted PSNR/SSIM and writes a
-per-checkpoint CSV. LPIPS is not computed (its network is not ported).
+evaluation set, reports adjusted + unadjusted PSNR/SSIM and the LPIPS of the
+adjusted image (``measure.Measure`` on the model's device; NaN with a note
+without ``GLARE_LPIPS_NPZ``), and writes a per-checkpoint CSV.
 
 Stage 2: the generator's output is a latent; it is decoded through the frozen
 VQGAN (codebook retrieval + decoder); the input is padded to a multiple of 4,
@@ -24,11 +25,13 @@ from collections import OrderedDict
 
 import numpy as np
 
+from ..measure import Measure
 from ..models import create_model
 from ..options import dict_to_nonedict, parse
 from ..utils.imgproc import impad, imread, imwrite, log_transform
 from ..utils.metrics import PSNR, calculate_ssim, gray_mean_adjust, img_as_ubyte
 from ..utils.util import natsorted, opt_get
+from .infer_paired import format_measurements
 
 
 def run_checkpoint_sweep(stage, conf_path, models_dir=None, device="cuda"):
@@ -49,13 +52,14 @@ def run_checkpoint_sweep(stage, conf_path, models_dir=None, device="cuda"):
     lr_paths = natsorted(glob.glob(os.path.join(opt["dataroot_LR"], "*.png")))
     hr_paths = natsorted(glob.glob(os.path.join(opt["dataroot_GT"], "*.png")))
 
+    measure = Measure(device=model.device)
     rows = []
     for ckpt in ckpts:
         model.load_network(ckpt)
-        metrics = evaluate_once(stage, model, opt, lr_paths, hr_paths)
+        metrics = evaluate_once(stage, model, opt, lr_paths, hr_paths, measure)
         row = OrderedDict(checkpoint=os.path.basename(ckpt), **metrics)
         rows.append(row)
-        print(", ".join(f"{k}: {v}" for k, v in row.items()))
+        print(format_measurements(row))
 
     df = pd.DataFrame(rows)
     out_csv = os.path.join(models_dir, f"test_stage{stage}_metrics.csv")
@@ -64,8 +68,10 @@ def run_checkpoint_sweep(stage, conf_path, models_dir=None, device="cuda"):
     return df
 
 
-def evaluate_once(stage, model, opt, lr_paths, hr_paths, save_dir=None):
-    psnrs, ssims, psnrs_adj, ssims_adj = [], [], [], []
+def evaluate_once(stage, model, opt, lr_paths, hr_paths, measure, save_dir=None):
+    """Metrics of ``model`` over the pairs; ``measure`` (a ``measure.Measure``)
+    computes the LPIPS of the adjusted images."""
+    psnrs, ssims, lpips_l, psnrs_adj, ssims_adj = [], [], [], [], []
     log_low = opt_get(opt, ["datasets", "train", "log_low"], False)
     for lr_path, hr_path in zip(lr_paths, hr_paths):
         lr = imread(lr_path)
@@ -94,6 +100,7 @@ def evaluate_once(stage, model, opt, lr_paths, hr_paths, save_dir=None):
         adj = gray_mean_adjust(restored, target)
         psnrs_adj.append(PSNR(target, adj))
         ssims_adj.append(calculate_ssim(img_as_ubyte(target), img_as_ubyte(adj)))
+        lpips_l.append(measure.lpips(img_as_ubyte(adj), img_as_ubyte(target)))
         if save_dir:
             imwrite(os.path.join(save_dir, os.path.basename(hr_path)), img_as_ubyte(adj))
 
@@ -102,6 +109,7 @@ def evaluate_once(stage, model, opt, lr_paths, hr_paths, save_dir=None):
         "SSIM": float(np.mean(ssims)),
         "PSNR_adj": float(np.mean(psnrs_adj)),
         "SSIM_adj": float(np.mean(ssims_adj)),
+        "LPIPS": float(np.mean(lpips_l)),
     }
 
 

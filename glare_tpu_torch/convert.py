@@ -148,8 +148,13 @@ def _put_dcnpack(sd, name, node, G=4, K=9):
 def _put_aft_decoder(sd, prefix, tree):
     _put_ldm_trunk(sd, prefix, tree)
     for w in range(2):
-        _put_conv(sd, f"{prefix}.warp.{w}.offset", tree[f"warp_{w}"]["offset"])
-        _put_dcnpack(sd, f"{prefix}.warp.{w}.dcn", tree[f"warp_{w}"]["dcn"])
+        warp = tree[f"warp_{w}"]
+        _put_conv(sd, f"{prefix}.warp.{w}.offset", warp["offset"])
+        if "dcn" in warp:
+            _put_dcnpack(sd, f"{prefix}.warp.{w}.dcn", warp["dcn"])
+        else:  # warp_mode flow: the JAX module's names (no reference checkpoint has one)
+            _put_conv(sd, f"{prefix}.warp.{w}.flow_head", warp["flow_head"])
+            _put_conv(sd, f"{prefix}.warp.{w}.post_conv", warp["post_conv"])
         sd[f"{prefix}.mix.{w}.w"] = _t(tree[f"mix_{w}"]["w"]).reshape(-1)
 
 

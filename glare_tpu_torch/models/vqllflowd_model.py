@@ -10,7 +10,11 @@ convolutions run in bf16 when ``inference_dtype: bfloat16``.
 
 ``audit_dcn_offsets`` / ``auto_configure_dcn`` measure the loaded weights' DCN
 offsets on a batch and pick, per warp, the cheapest configuration that is exact
-for it: the same stats and the same choices as the JAX model makes on a TPU.
+for it: the same stats and the same choices as the JAX model makes on a TPU,
+the gather hybrid (``dcn_impl: hybrid_gather``) included. A network whose warps
+are flow warps (``warp_mode: flow``) has no offsets to audit: as in the JAX
+model, its audit raises ``KeyError('intermediates')`` (``auto_configure_dcn``
+with ``dcn_impl: xla`` audits nothing and returns).
 
 Training (``is_train``): ``optimize_parameters`` is the reference's step,
     rec = AFT(no_grad(flow^-1(color map)), no_grad(vq.decode(...)), no_grad(mid_feat))
@@ -55,8 +59,8 @@ def temper_offset_heads(netG, seed=0, std=0.02):
     Kept tempered: large random heads make the offsets chaotic."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     with torch.no_grad():
-        for warp in netG.deformable_decoder.warp:
-            co = warp.dcn.conv_offset
+        for pack in netG.deformable_decoder.dcn_packs():
+            co = pack.conv_offset
             co.weight.copy_((torch.randn(co.weight.shape, generator=g) * std).to(co.weight))
             co.bias.copy_((torch.randn(co.bias.shape, generator=g) * 0.5).to(co.bias))
     return netG
@@ -217,13 +221,16 @@ class VQLLFLOWDModel(BaseModel):
     def audit_dcn_offsets(self, lq, radii=(1, 2, 4, 8)):
         """Measured offset stats of the LOADED weights on one batch.
 
-        Runs the stage-3 forward once with the two packs keeping their raw
+        Runs the stage-3 forward once with the DCN packs keeping their raw
         offsets (``DCNv2Pack.audit_offsets``) and returns Linf stats at tap,
         pixel and row-block granularity, at every radius in ``radii`` (callers
         pass the actual clamp radius). Row-block granularity is the cascade's
         unit, reported for both block sizes it can run (16 rows for
         R_tail < 6, 8 otherwise). Same keys and values as the JAX model's."""
-        packs = [w.dcn for w in self.netG.deformable_decoder.warp]
+        packs = self.netG.deformable_decoder.dcn_packs()
+        if not packs:
+            # flow warps sow no offsets; the JAX audit fails on the absent collection
+            raise KeyError("intermediates")
         saved_overflow = self._dcn_overflow_raw
         for p in packs:
             p.audit_offsets = True
@@ -290,14 +297,17 @@ class VQLLFLOWDModel(BaseModel):
         configuration that is exact for it: the clamp as configured, a plain
         wider clamp, per-tap radii, or the cascade ('hybrid') with R_tail above
         the measured tap max and capacity = ``capacity_margin`` x the measured
-        out-of-band row-block fraction. 'xla' needs nothing.
+        out-of-band row-block fraction. A warp beyond the cascade's 16 px menu
+        takes the gather hybrid ('hybrid_gather': R as configured, capacity =
+        ``capacity_margin`` x the out-of-band pixel fraction at R, between 1/64
+        and 1; R_tail kept), and a warp already on it is retuned the same way.
+        'xla' needs nothing.
 
         The cost of an option is the JAX package's proxy (select-chain cells per
         pixel of its TPU kernels), kept as it is so that a checkpoint gets the
         same configuration in both packages; the choices are those the JAX model
         makes on a TPU. Returns the stats dict with ``action`` and ``decisions``
-        added. A warp whose offsets go beyond the cascade's 16 px menu would need
-        the gather hybrid, which is not ported: NotImplementedError.
+        added.
         """
         def aslist(v):
             return list(v) if isinstance(v, (tuple, list)) and len(v) == 2 else [v, v]
@@ -378,10 +388,13 @@ class VQLLFLOWDModel(BaseModel):
                                           f"= {capacity_margin}x {rpb}-row-block tail "
                                           f"{frac:.4f}"))
             if not opts:
-                raise NotImplementedError(
-                    f"warp_{w}: tap max {tap_max:.1f} is beyond the 16 px cascade menu; the JAX "
-                    "package switches to dcn_impl 'hybrid_gather' here, which is not ported yet "
-                    "(a later slice of the port); use dcn_impl 'xla' for this checkpoint")
+                # beyond the 16 px cascade menu: the unbounded gather tail
+                frac = ws["pix_frac_exceed"][R_base]
+                cap = min(1.0, max(1 / 64, capacity_margin * frac))
+                return dict(impl="hybrid_gather", R=R_base, cap=cap, r_tail=tails0[w],
+                            cost=float("inf"),
+                            note=f"tap max {tap_max:.1f} beyond the 16 px cascade menu; gather "
+                                 f"capacity {cap:.4f} = {capacity_margin}x pixel tail {frac:.4f}")
             best = min(opts, key=lambda o: o["cost"])
             # hysteresis: keep the exact-as-configured option unless the winner is
             # more than 15% cheaper

@@ -5,15 +5,18 @@
     predicted from a *different* feature map, zero-initialized so it starts as
     a plain conv.
   * :class:`WarpBlock` -- offset conv + DCNv2 alignment of VQGAN decoder
-    features to the current hidden state.
+    features to the current hidden state (``warp_mode='dcn'``), or the bounded
+    group-flow alignment ``'flow'`` (``ops/warp.py``) and a 3x3 conv.
   * :class:`Mix` -- learned sigmoid-scalar blend.
   * :class:`MultiScaleDecoder2` -- VQGAN-shaped decoder fusing (flow latent,
     VQGAN ``code_decoder_output``, conditional-encoder ``mid_feat``).
 
 Checkpoint names are the reference's: ``warp.{w}.offset``,
 ``warp.{w}.dcn.conv_offset`` / ``.weight`` (OIHW) / ``.bias``, ``mix.{w}.w``,
-``residual_conv``. ``conv_offset`` keeps the reference channel packing:
-``o1, o2, mask = chunk(out, 3)``, ``offset = cat(o1, o2)`` read as
+``residual_conv``; a flow warp (no reference counterpart) has the JAX module's
+``warp.{w}.flow_head`` and ``warp.{w}.post_conv``. ``conv_offset`` keeps the
+reference channel packing: ``o1, o2, mask = chunk(out, 3)``,
+``offset = cat(o1, o2)`` read as
 ``[G, K, (dy, dx)]`` -- channel ``g*2K + 2k`` is dy of tap k, ``+1`` is dx.
 """
 
@@ -27,10 +30,7 @@ from torch import nn
 
 from ..nn.layers import AttnBlock, Conv, GroupNorm32, ResnetBlock, Upsample, swish
 from ..ops import dcn as dcn_ops
-
-_LATER = ("dcn_impl '{}' is not ported yet: the gather hybrid comes in a later slice of the "
-          "port; use 'xla' (exact), 'pallas' (clamped at dcn_max_offset), 'chain' (clamped at its "
-          "largest radius, the training default) or 'hybrid' (the cascade)")
+from ..ops import warp as warp_ops
 
 
 class DCNv2Pack(nn.Module):
@@ -43,13 +43,17 @@ class DCNv2Pack(nn.Module):
     ``'hybrid'`` = the cascade: clamp ``max_offset`` everywhere, and up to
     ``hybrid_capacity`` of the row blocks that hold a tap beyond it recomputed
     at clamp ``max(hybrid_tail_offset, max_offset + 1)`` (a per-tap table is
-    collapsed to its largest radius). The names are the JAX package's option
-    values; on the card all run the hand-written CUDA kernels of ``ops/dcn.py``.
-    ``'hybrid'`` always takes the cascade (the JAX module does so on a TPU; off
-    a TPU it stands in its gather hybrid for the Mosaic kernel). Under autograd on
-    the card every impl but ``'hybrid'`` runs the DCN autograd Function (the
-    forward kernel and ``csrc/dcn_bwd.cu``). ``'hybrid_gather'`` raises
-    ``NotImplementedError``.
+    collapsed to its largest radius); ``'hybrid_gather'`` = exact for unbounded
+    offsets: a clamp-``max_offset`` pass, and up to ``hybrid_capacity`` of the
+    pixels that hold a tap beyond it recomputed by gathers
+    (``ops/dcn.py:modulated_deform_conv_hybrid``; a per-tap table collapsed to
+    its largest radius; pixels past the capacity keep the clamped value). The
+    names are the JAX package's option values; on the card all run the
+    hand-written CUDA kernels of ``ops/dcn.py``. ``'hybrid'`` always takes the
+    cascade (the JAX module does so on a TPU; off a TPU it stands in its gather
+    hybrid for the Mosaic kernel). Under autograd on the card every impl but the
+    two hybrids (inference only there) runs the DCN autograd Function (the
+    forward kernel and ``csrc/dcn_bwd.cu``).
 
     After a forward with a bounded impl, ``dcn_overflow`` holds an int64 ``[2]``
     tensor on the device (the JAX module's ``dcn_overflow`` sow): for
@@ -59,13 +63,14 @@ class DCNv2Pack(nn.Module):
     maximum; the port counts where it clamps, and with an integer
     ``max_offset``, as in every conf, the two agree), for ``'hybrid'``
     ``[out-of-band blocks that did not fit the capacity,
-    taps beyond the tail radius]`` (the cascade's selection kernel).
+    taps beyond the tail radius]`` (the cascade's selection kernel); for
+    ``'hybrid_gather'`` it is None, as the JAX module sows no counter there.
     Non-zero means this batch's output deviates from exact DCNv2. With
     ``audit_offsets`` the raw ``[B, H, W, G, K, 2]`` offsets of the last forward
     are kept in ``last_offsets`` (the JAX module's ``offsets`` sow).
     """
 
-    IMPLS = ("xla", "pallas", "chain", "hybrid")
+    IMPLS = ("xla", "pallas", "chain", "hybrid", "hybrid_gather")
 
     def __init__(self, in_channels, features, deformable_groups=4, kernel_size=3, impl="xla",
                  max_offset: Any = 2, hybrid_capacity=0.125, hybrid_tail_offset=8,
@@ -88,7 +93,7 @@ class DCNv2Pack(nn.Module):
         ``'pallas'`` / ``'xla'`` (all inf) is built here, once, on the module's
         device; ``forward`` moves it along if the module has moved since."""
         if impl not in self.IMPLS:
-            raise NotImplementedError(_LATER.format(impl))
+            raise ValueError(f"dcn_impl {impl!r} is not one of {self.IMPLS}")
         self.impl, self.max_offset = impl, max_offset
         self.hybrid_capacity = float(hybrid_capacity)
         self.hybrid_tail_offset = int(hybrid_tail_offset)
@@ -127,6 +132,12 @@ class DCNv2Pack(nn.Module):
                 tail_offset=max(self.hybrid_tail_offset, int(mo) + 1),
                 capacity_frac=self.hybrid_capacity, return_overflow=True)
             return out.permute(0, 3, 1, 2)
+        if self.impl == "hybrid_gather":
+            self.dcn_overflow = None
+            out = dcn_ops.modulated_deform_conv_hybrid(
+                x_nhwc, offset, mask, weight, self.bias, max_offset=int(_largest(self.max_offset)),
+                capacity_frac=self.hybrid_capacity)
+            return out.permute(0, 3, 1, 2)
         if self.clamp_radii.device != x.device:
             self.clamp_radii = self.clamp_radii.to(x.device)
         out = dcn_ops.modulated_deform_conv(x_nhwc, offset, mask, weight, self.bias,
@@ -147,25 +158,46 @@ def _largest(max_offset):
 
 
 class WarpBlock(nn.Module):
-    """Align VQGAN features to the hidden state via DCNv2 (``warp_mode='dcn'``;
-    the bounded group-flow alignment ``'flow'`` is not ported yet)."""
+    """Align VQGAN features to the hidden state. ``warp_mode='dcn'``: the offset
+    conv feeds a :class:`DCNv2Pack`. ``'flow'``: the offset conv feeds
+    ``flow_head`` (C -> G*2, zero-initialised), whose ``tanh`` (float32) times
+    ``flow_max_offset`` is one flow vector per group and pixel;
+    ``ops/warp.py:flow_warp_align`` samples x_vq there and ``post_conv`` (C -> C
+    3x3) follows. A flow warp has no DCN pack: ``dcn`` is None."""
+
+    groups = 4            # deformable groups / flow groups, as in the JAX module
+    flow_max_offset = 2   # the JAX module's default, which no conf changes
 
     def __init__(self, channels, warp_mode="dcn", dcn_impl="xla", dcn_max_offset: Any = 2,
                  dcn_hybrid_capacity=0.125, dcn_hybrid_tail_offset=8, dcn_audit_offsets=False):
         super().__init__()
-        if warp_mode != "dcn":
-            raise NotImplementedError(
-                f"warp_mode '{warp_mode}' is not ported yet (only 'dcn'); it comes in a later "
-                "slice of the port")
+        if warp_mode not in ("dcn", "flow"):
+            raise ValueError(f"warp_mode {warp_mode!r} is not 'dcn' or 'flow'")
         self.offset = Conv(channels * 2, channels, 3, padding=1)
-        self.dcn = DCNv2Pack(channels, channels, deformable_groups=4, impl=dcn_impl,
+        if warp_mode == "flow":
+            self.dcn = None
+            self.flow_head = Conv(channels, self.groups * 2, 3, padding=1, zero_init=True)
+            self.post_conv = Conv(channels, channels, 3, padding=1)
+            return
+        self.dcn = DCNv2Pack(channels, channels, deformable_groups=self.groups, impl=dcn_impl,
                              max_offset=dcn_max_offset, hybrid_capacity=dcn_hybrid_capacity,
                              hybrid_tail_offset=dcn_hybrid_tail_offset,
                              audit_offsets=dcn_audit_offsets)
 
+    def flow(self, side):
+        """-> float32 flow [B, H, W, G, 2] (dy, dx) in [-flow_max_offset, flow_max_offset]."""
+        raw = self.flow_head(side)
+        B, _, H, W = raw.shape
+        return torch.tanh(raw.float()).permute(0, 2, 3, 1).reshape(B, H, W, self.groups, 2) \
+            * self.flow_max_offset
+
     def forward(self, x_vq, x_residual):
         side = self.offset(torch.cat([x_vq, x_residual.to(x_vq.dtype)], dim=1))
-        return self.dcn(x_vq, side)
+        if self.dcn is not None:
+            return self.dcn(x_vq, side)
+        aligned = warp_ops.flow_warp_align(x_vq.permute(0, 2, 3, 1), self.flow(side),
+                                           max_offset=self.flow_max_offset)
+        return self.post_conv(aligned.permute(0, 3, 1, 2))
 
 
 class Mix(nn.Module):
@@ -273,13 +305,19 @@ class MultiScaleDecoder2(nn.Module):
                       dcn_hybrid_tail_offset=8):
         """Re-dispatch both packs in place (scalars or per-warp 2-sequences)."""
         for w, warp in enumerate(self.warp):
-            warp.dcn.configure(_per_warp(dcn_impl, w), _per_warp(dcn_max_offset, w),
-                               _per_warp(dcn_hybrid_capacity, w),
-                               _per_warp(dcn_hybrid_tail_offset, w))
+            if warp.dcn is not None:   # a flow warp has no knob to set (the JAX clone neither)
+                warp.dcn.configure(_per_warp(dcn_impl, w), _per_warp(dcn_max_offset, w),
+                                   _per_warp(dcn_hybrid_capacity, w),
+                                   _per_warp(dcn_hybrid_tail_offset, w))
+
+    def dcn_packs(self):
+        """The DCNv2Packs of the warps, in warp order (none for flow warps)."""
+        return [w.dcn for w in self.warp if w.dcn is not None]
 
     def dcn_overflow(self):
-        """Per-warp ``dcn_overflow`` tensors of the last forward (None for exact impls)."""
-        return [w.dcn.dcn_overflow for w in self.warp]
+        """Per-pack ``dcn_overflow`` tensors of the last forward (None for exact impls
+        and ``'hybrid_gather'``)."""
+        return [p.dcn_overflow for p in self.dcn_packs()]
 
     def last_dcn_shapes(self):
-        return {f"warp_{i}": w.dcn.last_shapes for i, w in enumerate(self.warp)}
+        return {f"warp_{i}": w.dcn.last_shapes for i, w in enumerate(self.warp) if w.dcn is not None}

@@ -80,9 +80,27 @@ two counters ``[blocks that did not fit, taps beyond R_tail]`` say when not.
     function for the work of a plain one.
   * :func:`modulated_deform_conv_cascade` -- dispatch as above.
 
+The gather hybrid (counterpart of ``glare_tpu/ops/dcn.py``'s
+``modulated_deform_conv_hybrid``; used by ``dcn_impl: hybrid_gather``): exact
+DCNv2 for unbounded offsets. A pixel is out of band when any of its G*K taps
+has |dy| > R or |dx| > R; the first S of them in flat ``(b, h, w)`` order
+(:func:`hybrid_selection`, S from :func:`hybrid_slots`) are computed exactly
+and written over a clamp-R base pass that ran with their mask zeroed and no
+bias; the bias is added last. Out-of-band pixels past the S slots keep their
+clamp-R value (the JAX op's behaviour), and no counter says so.
+
+  * :func:`modulated_deform_conv_hybrid_ref` -- plain version: the base pass by
+    :func:`modulated_deform_conv_ref`.
+  * :func:`modulated_deform_conv_hybrid` -- the same on the card with the base
+    pass by :func:`modulated_deform_conv_cuda` (the entry :func:`route` picks:
+    ``hopper`` at the serving widths); the exact tail
+    (:func:`hybrid_gather_tail`) is torch gathers and one float32 product per
+    chunk of slots, as the JAX op leaves it to XLA gathers.
+
 Numerics shared by all: sampling in float32, the sampled column rounded once
 to x's dtype, products accumulated in float32, bias added in float32, result
-cast to x's dtype.
+cast to x's dtype (the gather hybrid adds its bias after that cast, in x's
+dtype, as the JAX op does).
 
 What bounds the kernels on an H100: the contraction, ``2*B*H*W*9*C*O`` FLOP,
 more than the bytes of x, offset, mask and out; design notes are in the CUDA
@@ -679,3 +697,111 @@ def modulated_deform_conv_cascade(x, offset, mask, weight, bias=None, max_offset
     fn = modulated_deform_conv_cascade_cuda if _build.on_card(x) else modulated_deform_conv_cascade_ref
     return fn(x, offset, mask, weight, bias, max_offset, tail_offset, capacity_frac,
               rows_per_step, return_overflow)
+
+
+# ------------------------------------------------------- the gather hybrid --
+
+HYBRID_PIXELS_PER_CHUNK = 16384  # slots of the exact tail per chunk (the JAX op's pixels_per_chunk)
+
+
+def hybrid_slots(n_pixels: int, capacity_frac: float) -> int:
+    """The gather hybrid's tail slots for ``n_pixels`` (= B*H*W): ``capacity_frac``
+    of them rounded up to a multiple of 128, at least 128, at most ``n_pixels``."""
+    return min(n_pixels, max(128, -(-int(n_pixels * capacity_frac) // 128) * 128))
+
+
+def hybrid_selection(offset, max_offset=2, capacity_frac=0.125):
+    """-> (selected bool [B*H*W], idx int64 [S]) of the gather hybrid. A pixel is
+    out of band when any of its G*K taps has |dy| > R or |dx| > R; slot s holds
+    the flat ``(b, h, w)`` index of the s-th out-of-band pixel (a cumulative sum
+    fills them in order), the first S are selected, and an unfilled slot holds
+    B*H*W. Torch ops on ``offset``'s device; nothing is read back."""
+    B, H, W = offset.shape[:3]
+    n = B * H * W
+    S = hybrid_slots(n, capacity_frac)
+    oob = (offset.float().abs().amax(dim=-1) > int(max_offset)).reshape(n, -1).any(dim=1)
+    pos = torch.cumsum(oob.to(torch.int64), dim=0) - 1
+    selected = oob & (pos < S)
+    slot = torch.where(selected, pos, torch.full_like(pos, S))
+    idx = torch.full((S + 1,), n, dtype=torch.int64, device=offset.device)
+    idx.scatter_(0, slot, torch.arange(n, device=offset.device))  # slot S takes the rest, dropped
+    return selected, idx[:S]
+
+
+def hybrid_gather_tail(x, offset, mask, weight, idx, pixels_per_chunk=HYBRID_PIXELS_PER_CHUNK):
+    """Exact DCNv2 without bias at the flat pixels ``idx`` (unbounded offsets,
+    the CUDA extension's border rule: zero outside (-1, H) x (-1, W) and at
+    each corner outside the image) -> ``[S, O]`` in x's type. A slot holding
+    B*H*W is computed at the last pixel (its value is dropped by the caller).
+    Chunks of ``pixels_per_chunk`` slots bound the gathered buffers; in each,
+    the sampled column is rounded to x's type and contracted in float32."""
+    B, H, W, C = x.shape
+    G, O = offset.shape[3], weight.shape[-1]
+    K, Cg, n = 9, C // G, B * H * W
+    dev = x.device
+    xg = x.reshape(n, G, Cg).permute(1, 0, 2).reshape(G * n, Cg)   # group-major rows
+    off = offset.reshape(n, G, K, 2)
+    m = mask.reshape(n, G, K)
+    w2 = weight.reshape(K * C, O).to(x.dtype).float()
+    ky = torch.tensor(_KY, dtype=torch.float32, device=dev)
+    kx = torch.tensor(_KX, dtype=torch.float32, device=dev)
+    g_row = (torch.arange(G, device=dev) * n).view(1, G, 1)
+    outs = []
+    for s0 in range(0, idx.shape[0], pixels_per_chunk):
+        p = idx[s0:s0 + pixels_per_chunk].clamp(max=n - 1)
+        hw = p % (H * W)
+        o = off[p].float()                                             # [s, G, K, 2]
+        py = (hw // W).float().view(-1, 1, 1) + ky + o[..., 0]
+        px = (hw % W).float().view(-1, 1, 1) + kx + o[..., 1]
+        in_range = (py > -1.0) & (py < H) & (px > -1.0) & (px < W)
+        y0, x0 = torch.floor(py), torch.floor(px)
+        ly, lx = py - y0, px - x0
+        hy, hx = 1.0 - ly, 1.0 - lx
+        rows = (p - hw).view(-1, 1, 1) + g_row                         # image start of each group
+
+        def corner(yi, xi, wgt):
+            valid = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W) & in_range
+            lin = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).long()
+            vals = xg.index_select(0, (rows + lin).reshape(-1)).float()   # [s*G*K, Cg]
+            return vals * (wgt * valid.to(wgt.dtype)).reshape(-1, 1)
+
+        samp = corner(y0, x0, hy * hx)
+        samp = samp + corner(y0, x0 + 1, hy * lx)
+        samp = samp + corner(y0 + 1, x0, ly * hx)
+        samp = samp + corner(y0 + 1, x0 + 1, ly * lx)
+        samp = samp * m[p].float().reshape(-1, 1)
+        col = samp.reshape(-1, G, K, Cg).permute(0, 2, 1, 3).reshape(-1, K * C)
+        outs.append((col.to(x.dtype).float() @ w2).to(x.dtype))
+    return torch.cat(outs)
+
+
+def _hybrid(base, x, offset, mask, weight, bias, max_offset, capacity_frac):
+    B, H, W, C, O, G = _check(x, offset, mask, weight)
+    R = int(max_offset)
+    selected, idx = hybrid_selection(offset, R, capacity_frac)
+    keep = (~selected).reshape(B, H, W, 1, 1).to(mask.dtype)
+    out = base(x, offset, mask * keep, weight, None, max_offset=R)
+    vals = hybrid_gather_tail(x, offset, mask, weight, idx)
+    flat = torch.cat([out.reshape(B * H * W, O), out.new_zeros(1, O)])   # row B*H*W: unfilled slots
+    flat.index_copy_(0, idx, vals)
+    out = flat[:-1].reshape(B, H, W, O)
+    return out if bias is None else out + bias.to(out.dtype)
+
+
+def modulated_deform_conv_hybrid_ref(x, offset, mask, weight, bias=None, max_offset=2,
+                                     capacity_frac=0.125):
+    """Plain PyTorch gather hybrid: the base pass by :func:`modulated_deform_conv_ref`."""
+    return _hybrid(modulated_deform_conv_ref, x, offset, mask, weight, bias, max_offset,
+                   capacity_frac)
+
+
+def modulated_deform_conv_hybrid(x, offset, mask, weight, bias=None, max_offset=2,
+                                 capacity_frac=0.125):
+    """The gather hybrid: for CUDA tensors the base pass is one launch of the
+    kernel :func:`route` picks (:func:`modulated_deform_conv_cuda`; it raises
+    rather than fall back), on the CPU the plain version."""
+    if not _build.on_card(x):
+        return modulated_deform_conv_hybrid_ref(x, offset, mask, weight, bias, max_offset,
+                                                capacity_frac)
+    return _hybrid(modulated_deform_conv_cuda, x, offset, mask, weight, bias, max_offset,
+                   capacity_frac)

@@ -9,6 +9,6 @@ tracking, datasets, metrics and the config-driven train / test pipelines.
 
 Not ported yet: ``archs/swinir_arch.py``, ``archs/arch_util.py``,
 ``data/haze_online_dataset.py`` with ``utils/{diffjpeg,img_process_util}.py``,
-``utils/{lmdb_util,face_util,flow_util}.py`` and ``metrics_fid.py``;
+and ``utils/{lmdb_util,face_util,flow_util}.py``;
 ``utils/download_util.py`` is not ported by rule (nothing in the port fetches).
 """

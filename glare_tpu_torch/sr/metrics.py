@@ -1,33 +1,19 @@
 """Registered evaluation metrics (counterpart of ``glare_tpu/sr/metrics.py``;
 reference: basicsr/metrics): PSNR / SSIM in the [0, 255] convention with
-``crop_border`` and the BT.601 Y channel (``test_y_channel``), and
-:func:`build_metric`. NIQE needs pristine-model parameters and is not ported:
-it raises. The [0, 255] PSNR and the Y conversion are the port's own copies
-(``glare_tpu/utils/metrics.py``, ``glare_tpu/utils/matlab_functions.py``).
+``crop_border`` and the BT.601 Y channel (``test_y_channel``), NIQE
+(``utils/niqe.py``: pristine-model parameters from ``pris_params=(mu, cov)`` or
+``$GLARE_NIQE_PARAMS``, else JAX's informative error), FID (``metrics_fid.py``,
+registered on import) and :func:`build_metric`. Host-side numpy and scipy.
 """
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 
+from ..utils.matlab_functions import rgb2ycbcr
+from ..utils.metrics import calculate_psnr as _psnr_255
 from ..utils.metrics import calculate_ssim as _ssim_255
 from .registry import METRIC_REGISTRY
-
-
-def rgb2ycbcr_y(img):
-    """BT.601 luma of float RGB in [0, 1], as MATLAB's ``rgb2ycbcr`` gives it
-    (in [16/255, 235/255]), in the input's float type."""
-    y = (np.dot(img.astype(np.float32), [65.481, 128.553, 24.966]) + 16.0) / 255.0
-    return y.astype(img.dtype)
-
-
-def _psnr_255(img1, img2):
-    mse = np.mean((np.asarray(img1, np.float64) - np.asarray(img2, np.float64)) ** 2)
-    if mse == 0:
-        return float("inf")
-    return 20 * math.log10(255.0 / math.sqrt(mse))
 
 
 def _prep(img, crop_border, test_y_channel, input_order="HWC"):
@@ -38,7 +24,7 @@ def _prep(img, crop_border, test_y_channel, input_order="HWC"):
         img = img[crop_border:-crop_border, crop_border:-crop_border]
     if test_y_channel and img.ndim == 3 and img.shape[2] == 3:
         imgf = img.astype(np.float32) / 255.0 if img.dtype == np.uint8 else img
-        img = rgb2ycbcr_y(imgf) * 255.0
+        img = rgb2ycbcr(imgf, y_only=True) * 255.0
     return img
 
 
@@ -47,8 +33,6 @@ def calculate_psnr(img, img2, crop_border=0, input_order="HWC", test_y_channel=F
     """PSNR in the [0, 255] convention."""
     a = _prep(img, crop_border, test_y_channel, input_order)
     b = _prep(img2, crop_border, test_y_channel, input_order)
-    if a.shape != b.shape:
-        raise ValueError("Input images must have the same dimensions.")
     return _psnr_255(a, b)
 
 
@@ -61,11 +45,18 @@ def calculate_ssim(img, img2, crop_border=0, input_order="HWC", test_y_channel=F
 
 
 @METRIC_REGISTRY.register()
-def calculate_niqe(img, crop_border=0, input_order="HWC", convert_to="y", **_):
-    raise NotImplementedError(
-        "NIQE needs the pristine-model parameters (niqe_pris_params.npz or "
-        "modelparameters.mat) and is not ported to glare_tpu_torch yet (ROADMAP.md, queue 1); "
-        "the JAX package's glare_tpu.utils.niqe computes it (GLARE_NIQE_PARAMS)")
+def calculate_niqe(img, crop_border=0, input_order="HWC", convert_to="y", **kw):
+    """NIQE (``utils/niqe.py:calculate_niqe``): parameters from ``pris_params=(mu,
+    cov)``, ``$GLARE_NIQE_PARAMS`` or ``utils.niqe.fit_niqe_params``; without any
+    of them it raises an informative NotImplementedError."""
+    from ..utils.niqe import calculate_niqe as _niqe
+
+    return _niqe(img, crop_border=crop_border, input_order=input_order,
+                 convert_to=convert_to, **kw)
+
+
+# importing registers `calculate_fid` (the Frechet distance and its stats-file workflow)
+from . import metrics_fid  # noqa: F401,E402
 
 
 def build_metric(name):

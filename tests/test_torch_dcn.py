@@ -142,12 +142,17 @@ def test_unported_impls_raise(impl):
         pack = DCNv2Pack(8, 8, impl=impl, max_offset=per_tap)
         assert pack.impl == "chain" and bool((pack.clamp_radii == 3.0).all())
         return
-    with pytest.raises(NotImplementedError, match="later slice"):
-        DCNv2Pack(8, 8, impl=impl)
+    # hybrid_gather: ported (tests/test_torch_dcn_gather.py); it builds and configures,
+    # a per-tap table kept for its forward to collapse, and an unknown impl raises
+    per_tap = tuple(tuple(1 + (g + k) % 3 for k in range(9)) for g in range(4))
+    pack = DCNv2Pack(8, 8, impl=impl, max_offset=per_tap, hybrid_capacity=0.25)
+    assert (pack.impl, pack.max_offset, pack.hybrid_capacity) == (impl, per_tap, 0.25)
     pack = DCNv2Pack(8, 8, impl="xla")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pack.configure(impl, 2)
-    assert pack.impl == "xla"
+    pack.configure(impl, 3, 0.5)
+    assert (pack.impl, pack.max_offset, pack.hybrid_capacity) == (impl, 3, 0.5)
+    with pytest.raises(ValueError, match="not one of"):
+        pack.configure("gather", 2)
+    assert pack.impl == impl
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

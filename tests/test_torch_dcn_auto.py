@@ -8,8 +8,8 @@
   * ``auto_configure_dcn``: given THE SAME stats (``audit_dcn_offsets`` is
     patched on both models, as tests/test_dcn_auto.py does) the port makes the
     choice the JAX model makes on a TPU (``jax.default_backend`` is patched to
-    "tpu" in these tests only): kept, plain wide clamp, per-tap radii, cascade;
-    where JAX switches to the gather hybrid the port raises.
+    "tpu" in these tests only): kept, plain wide clamp, per-tap radii, cascade,
+    and beyond the cascade's menu the gather hybrid.
   * the CLI's overflow loop on a batch that overflows: ends exact, or warns.
 """
 
@@ -173,18 +173,33 @@ def test_decisions_match_jax_given_the_same_stats(monkeypatch, w0, w1, impl, wan
 
 
 def test_beyond_the_cascade_menu_raises_where_jax_takes_the_gather_hybrid(monkeypatch):
+    """Beyond the 16 px menu JAX takes the gather hybrid; the port makes the same
+    decision (it no longer raises), reconfigures the pack and serves. A warp
+    already on the gather hybrid is retuned the same way."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    jm = _jax_model("pallas")
-    monkeypatch.setattr(jm, "audit_dcn_offsets",
-                        lambda lq, radii=None: _stats("beyond_menu", "in_band"))
-    want = jm.auto_configure_dcn(np.zeros((1, 32, 32, 3), np.float32))
-    assert want["decisions"]["warp_0"]["impl"] == "hybrid_gather"
-    model = create_model(_opt("pallas"), device="cpu")
-    monkeypatch.setattr(model, "audit_dcn_offsets",
-                        lambda lq, radii=None: _stats("beyond_menu", "in_band"))
-    with pytest.raises(NotImplementedError, match="hybrid_gather.*later slice"):
-        model.auto_configure_dcn(np.zeros((1, 32, 32, 3), np.float32))
-    assert model.netG.dcn_impl == "pallas"
+    zero = np.zeros((1, 32, 32, 3), np.float32)
+    for impl in ("pallas", "hybrid_gather"):
+        jm = _jax_model(impl)
+        monkeypatch.setattr(jm, "audit_dcn_offsets",
+                            lambda lq, radii=None: _stats("beyond_menu", "in_band"))
+        want = jm.auto_configure_dcn(zero)
+        model = create_model({**_opt(impl), "network_G": {
+            **_opt(impl)["network_G"], "dcn_hybrid_capacity": 0.125, "dcn_hybrid_tail_offset": 8}},
+            device="cpu")
+        monkeypatch.setattr(model, "audit_dcn_offsets",
+                            lambda lq, radii=None: _stats("beyond_menu", "in_band"))
+        got = model.auto_configure_dcn(zero)
+        assert want["decisions"]["warp_0"]["impl"] == "hybrid_gather"
+        assert got["decisions"] == want["decisions"] and got["action"] == want["action"]
+        for knob in ("dcn_impl", "dcn_max_offset", "dcn_hybrid_capacity", "dcn_hybrid_tail_offset"):
+            assert getattr(model.netG, knob) == getattr(jm.netG, knob), knob
+        d = got["decisions"]["warp_0"]
+        assert (d["R"], d["cap"]) == (2, 4.0 * 0.1)       # capacity_margin x the pixel tail
+        pack = model.netG.deformable_decoder.dcn_packs()[0]
+        assert (pack.impl, pack.max_offset, pack.hybrid_capacity) == ("hybrid_gather", 2, d["cap"])
+        sr = model.get_sr(_lq(0, 1))
+        assert bool(torch.isfinite(sr).all())
+        assert model.last_dcn_overflow() is not None      # warp_1's clamped pack still counts
 
 
 def test_exact_impl_needs_no_audit():

@@ -44,7 +44,10 @@ def test_sources_found():
             "glare_tpu_torch/cli/infer_paired.py", "glare_tpu_torch/cli/infer_unpaired.py",
             "glare_tpu_torch/cli/test_stages.py", "glare_tpu_torch/tools/dcn_train_designs.py",
             "glare_tpu_torch/sr/train.py", "glare_tpu_torch/sr/models/vq_model.py",
-            "glare_tpu_torch/sr/archs/discriminator_arch.py"} <= rel
+            "glare_tpu_torch/sr/archs/discriminator_arch.py", "glare_tpu_torch/measure.py",
+            "glare_tpu_torch/ops/warp.py", "glare_tpu_torch/utils/lpips.py",
+            "glare_tpu_torch/utils/niqe.py", "glare_tpu_torch/utils/matlab_functions.py",
+            "glare_tpu_torch/sr/metrics_fid.py"} <= rel
     # every kernel source and header the build compiles (python3 chip_smoke.py builds them all)
     from glare_tpu_torch.ops import _build
 
@@ -116,7 +119,13 @@ assert {"glare_tpu_torch.sr.train", "glare_tpu_torch.sr.test", "glare_tpu_torch.
         "glare_tpu_torch.sr.archs.discriminator_arch", "glare_tpu_torch.sr.archs.swin",
         "glare_tpu_torch.sr.data.paired_image_dataset", "glare_tpu_torch.sr.utils.file_client",
         "glare_tpu_torch.sr.metrics"} <= sr, sorted(sr)
-from glare_tpu_torch.sr.registry import ARCH_REGISTRY, DATASET_REGISTRY, MODEL_REGISTRY
+# the evaluation metrics and the flow warp, without cv2 (their numpy / scipy / torch parts)
+for name in ("glare_tpu_torch.measure", "glare_tpu_torch.ops.warp", "glare_tpu_torch.utils.lpips",
+             "glare_tpu_torch.utils.niqe", "glare_tpu_torch.utils.matlab_functions",
+             "glare_tpu_torch.sr.metrics_fid"):
+    assert name in sys.modules, name
+from glare_tpu_torch.sr.registry import ARCH_REGISTRY, DATASET_REGISTRY, METRIC_REGISTRY, MODEL_REGISTRY
+assert {"calculate_psnr", "calculate_ssim", "calculate_niqe", "calculate_fid"} <= set(METRIC_REGISTRY.keys())
 assert {"VQWeightDehazeNet", "UNetDiscriminatorSN"} <= set(ARCH_REGISTRY.keys())
 assert "VQDehazeModel" in MODEL_REGISTRY and "SingleImageDataset" in DATASET_REGISTRY
 print("imported", n)

@@ -326,7 +326,7 @@ def test_r1_and_gradient_penalty_match_jax():
     assert abs(float(gp) - (float(wl.norm()) - 1) ** 2) <= 1e-4 * (float(wl.norm()) - 1) ** 2
 
 
-def test_metrics_match_jax_and_niqe_raises():
+def test_metrics_match_jax_and_niqe_raises(monkeypatch):
     rng = np.random.RandomState(0)
     a = rng.randint(0, 256, (32, 32, 3), np.uint8)
     b = np.clip(a.astype(int) + rng.randint(-8, 8, a.shape), 0, 255).astype(np.uint8)
@@ -334,6 +334,17 @@ def test_metrics_match_jax_and_niqe_raises():
         assert abs(metrics.calculate_psnr(a, b, **kw) - jax_metrics.calculate_psnr(a, b, **kw)) <= 1e-9
         assert abs(metrics.calculate_ssim(a, b, **kw) - jax_metrics.calculate_ssim(a, b, **kw)) <= 1e-9
     assert metrics.build_metric("calculate_psnr") is metrics.calculate_psnr
+    # NIQE: computed where JAX computes (pristine parameters given; here fitted on a
+    # seeded 192x192 field), JAX's informative error without them (GLARE_NIQE_PARAMS unset)
+    from glare_tpu_torch.utils.niqe import fit_niqe_params
+
+    field = rng.rand(192, 192)
+    field = np.round(255.0 * (field - field.min()) / (field.max() - field.min()))
+    pris = fit_niqe_params([field])
+    img = rng.randint(0, 256, (96, 100, 3), np.uint8)
+    got = metrics.build_metric("calculate_niqe")(img, pris_params=pris)
+    assert np.isfinite(got) and abs(got - jax_metrics.calculate_niqe(img, pris_params=pris)) <= 1e-10 * got
+    monkeypatch.delenv("GLARE_NIQE_PARAMS", raising=False)
     with pytest.raises(NotImplementedError, match="NIQE"):
         metrics.calculate_niqe(np.zeros((8, 8, 3)))
 

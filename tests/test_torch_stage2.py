@@ -26,10 +26,12 @@ from glare_tpu.utils import imgproc as jimgproc
 from glare_tpu_torch import convert
 from glare_tpu_torch.cli import infer_unpaired
 from glare_tpu_torch.cli import test_stages as stages_cli
+from glare_tpu_torch.measure import Measure
 from glare_tpu_torch.models import create_model
 from glare_tpu_torch.modules.flow_layers import GaussianDiag
 from glare_tpu_torch.modules.llflow_vqgan2 import LLFlowVQGAN2
 from glare_tpu_torch.utils.imgproc import auto_padding, imwrite
+from glare_tpu_torch.utils import lpips as lpips_mod
 
 from test_torch_stage3 import _opt as _opt3
 from torch_port_util import fill_tree, nhwc, rel_err
@@ -183,8 +185,10 @@ def _write_pairs(root, n, h, w, seed):
 
 
 @pytest.mark.parametrize("stage", [2, 3])
-def test_evaluate_once_on_synthetic_pairs(stage, tmp_path, pair):
+def test_evaluate_once_on_synthetic_pairs(stage, tmp_path, pair, monkeypatch):
     pytest.importorskip("cv2")
+    monkeypatch.delenv("GLARE_LPIPS_NPZ", raising=False)   # no LPIPS weights: the column is NaN
+    monkeypatch.setattr(lpips_mod, "probe_lpips_cache", lambda: None)
     # stage 2 pads 30x26 to 32x28 (the latent stride); stage 3 pads 28x20 to 48x40
     h, w = (30, 26) if stage == 2 else (28, 20)
     lr_paths, hr_paths = _write_pairs(str(tmp_path), 2, h, w, seed=stage)
@@ -194,8 +198,10 @@ def test_evaluate_once_on_synthetic_pairs(stage, tmp_path, pair):
         opt = {**_opt3("hybrid"), "datasets": {"train": {"log_low": True}}}
         model = create_model(opt, device="cpu")
     save_dir = str(tmp_path / "out")
-    m = stages_cli.evaluate_once(stage, model, opt, lr_paths, hr_paths, save_dir=save_dir)
-    assert set(m) == {"PSNR", "SSIM", "PSNR_adj", "SSIM_adj"}
+    m = stages_cli.evaluate_once(stage, model, opt, lr_paths, hr_paths, Measure(device="cpu"),
+                                 save_dir=save_dir)
+    assert set(m) == {"PSNR", "SSIM", "PSNR_adj", "SSIM_adj", "LPIPS"}
+    assert np.isnan(m.pop("LPIPS"))     # as the JAX CLI writes it without weights
     assert all(np.isfinite(v) for v in m.values())
     assert m["PSNR_adj"] >= m["PSNR"] - 1e-9 or m["PSNR"] > 0
     assert sorted(os.listdir(save_dir)) == ["0.png", "1.png"]

@@ -4,7 +4,8 @@ the same carried weights, on the CPU.
 
 Small configuration: 32x32 input, ch=32, one res-block per level, K=2, L=1,
 n_embed=64, float32, for ``dcn_impl`` 'xla' (exact), 'pallas' (clamped at 2) and
-'hybrid' (the cascade). The JAX side of 'pallas' runs 'chain', its XLA
+'hybrid' (the cascade); the gather hybrid and ``warp_mode: flow`` are held the
+same way in tests/test_torch_dcn_gather.py and tests/test_torch_warp_flow.py. The JAX side of 'pallas' runs 'chain', its XLA
 formulation of the same clamped op (the Pallas kernel needs a TPU or minutes of
 interpret mode at this size; it is held against the port's op in
 tests/test_torch_dcn.py). The JAX side of 'hybrid' runs 'xla': the Mosaic cascade
@@ -48,8 +49,10 @@ def _opt(dcn_impl):
     }
 
 
-def _jax_side(dcn_impl, lq, rng):
-    net = JNet(K=2, L=1, additional_flow_no_affine=2, dcn_impl=dcn_impl, dcn_max_offset=2, **MINI)
+def _jax_side(dcn_impl, lq, rng, **knobs):
+    """``knobs``: further VQLLFLOWDeformable fields (``warp_mode``, ``dcn_hybrid_capacity``)."""
+    net = JNet(K=2, L=1, additional_flow_no_affine=2, dcn_impl=dcn_impl, dcn_max_offset=2, **MINI,
+               **knobs)
     vq = JVQModel(vq_backend="ref", **VQ)
     x = jnp.asarray(lq)
 
@@ -124,8 +127,19 @@ def test_entry_points_need_an_explicit_cpu():
 
 
 def test_unported_parts_raise_with_a_pointer():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        create_model(_opt("hybrid_gather"), device="cpu")
+    # ported since: the gather hybrid and the flow warp (tests/test_torch_dcn_gather.py,
+    # tests/test_torch_warp_flow.py); an unknown impl or warp mode raises
+    gather = create_model(_opt("hybrid_gather"), device="cpu")
+    assert [p.impl for p in gather.netG.deformable_decoder.dcn_packs()] == ["hybrid_gather"] * 2
+    flow_opt = _opt("xla")
+    flow_opt["network_G"]["warp_mode"] = "flow"
+    flow = create_model(flow_opt, device="cpu")
+    assert flow.netG.deformable_decoder.dcn_packs() == []
+    for knob, bad in (("dcn_impl", "hybrid_gather2"), ("warp_mode", "optical")):
+        bad_opt = _opt("xla")
+        bad_opt["network_G"][knob] = bad
+        with pytest.raises(ValueError, match=bad):
+            create_model(bad_opt, device="cpu")
     opt = _opt("xla")
     opt["is_train"] = True
     opt["train"] = {"manual_seed": 1, "lr_G": 5e-5, "mixed_precision": True}
