@@ -106,6 +106,20 @@ Phases, each printing one JSON line:
              grad_x (the WarpBlocks' exact DCN under autograd), frozen tensors
              bit-equal; one iteration through the kernels against the same
              through the plain versions
+  haze_lq_path  RIDCP's dehazing data path: HazeOnlineDataset (train, 256 crop)
+             over eight seeded 400x600 images and depth maps through sr.data's
+             loader at batch 4, then two iterations of train_stage1_lq_path's
+             model (each exactly 2 f32 DCN forwards and 2 backward passes with
+             grad_x); host ms per item beside ms per iteration
+  swinir_path  SwinIR-M (classical SR x4, seeded weights, float32): one
+             256x256 image to 1024x1024; a 64x64 crop card against CPU
+  degradation_path  DiffJPEG (per-sample quality, differentiable with a
+             backward, and hard), USMSharp and per-sample 21x21 filter2D on
+             12 crops of 256x256, each card against CPU (decisions at a rounding
+             or threshold near-tie counted, their reach excluded)
+  legacy_path  RRDBNet (ESRGAN widths, get_steps) and ColorEncoder at 600x400,
+             a 64x64 crop card against CPU; GumbelQuantize in eval and
+             EMAVectorQuantizer with one update, card against CPU
 Every path is driven with the launch counts (attention and DCN: one per entry,
 see counters()) set to 0 just before and read just after; every attention launch
 of an inference path must land on the hopper entry, every DCN launch on the
@@ -166,7 +180,14 @@ STAGE_RATIO = 1.25
 STAGE_ABS_SLACK = 1e-3
 
 
+T_START = time.time()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries ``t_s``, the script's seconds when it
+    ended (a phase's time is the difference from the line before)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.time() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -3050,7 +3071,8 @@ def _s1_iterations(model, batches, per_step, bwd_per_step, first_iter=1):
                 u1 = _u_state(model.net_d)
                 require(set(counts) == {n[:-2] for n in u1} and set(counts.values()) == {1},
                         f"stage-1 iteration {i}: u stored {counts}")
-                same_u = [n for n in u1 if torch.equal(u1[n], u0[n]) and not (u1[n].numel() == 1 and i > 0)]
+                same_u = [n for n in u1 if torch.equal(u1[n], u0[n])
+                          and not (u1[n].numel() == 1 and bool((u0[n].abs() == 1).all()))]
                 require(not same_u, f"stage-1 iteration {i}: u unchanged {same_u}")
                 ema_want = ema0 * model.ema_decay + model._flat_params() * (1 - model.ema_decay)
                 ema_err = float((model.ema_flat - ema_want).abs().max() / ema_want.abs().max())
@@ -3496,17 +3518,12 @@ def phase_train_stage1_path():
     return path_counts, model, path
 
 
-def phase_train_stage1_lq_path(hq_path=None):
-    """The LQ stage of the same conf (LQ_stage, use_weight, frozen_module_keywords
-    S1_FROZEN), net_hq and the starting generator from the HQ phase's net_g file
-    (pretrain_network_hq, strict=False; without the HQ phase, a seeded HQ model's),
-    the codebook usage weight seeded (N(0, 0.05^2)) so the weighted distance moves
-    the argmin, the zero-initialized warp heads given small seeded weights and set
-    off the integer grid (condition_offset_heads' rule), synthetic pairs. The path: a warm-up and three timed iterations, each
-    launching exactly 2 f32 DCN forwards and 2 backward passes with grad_x and no
-    plain version, frozen tensors bit-equal. Then one iteration's losses and
-    gradients through the kernels against the same iteration through the plain
-    versions (the DCN: autograd of modulated_deform_conv_ref)."""
+def _s1_lq_model(hq_path=None):
+    """The LQ-stage model of train_stage1_lq_path: net_hq and the starting generator
+    from ``hq_path`` (without it, a seeded HQ model's file), the usage weight
+    seeded, the warp heads tempered and set off the integer grid on one synthetic
+    batch, the EMA started. -> (model, the warp DCN packs, the heads' input-
+    dependent spread, build seconds, the HQ file)."""
     from glare_tpu_torch.sr.models import build_model
 
     if hq_path is None:
@@ -3525,17 +3542,32 @@ def phase_train_stage1_lq_path(hq_path=None):
     with torch.no_grad():
         w = net.quantize_group[0].weight
         w.copy_((0.05 * torch.randn(w.shape, generator=g)).to(w))
-    batches = [s1_batch(300 + i, lq=True) for i in range(5)]
     packs = [wb.dcn for wb in net.multiscale_decoder.warp]
     with torch.no_grad():  # the zero-initialized heads get small seeded weights (temper_offset_heads' rule)
         for pack in packs:
             co = pack.conv_offset
             co.weight.copy_((0.02 * torch.randn(co.weight.shape, generator=g)).to(co.weight))
             co.bias.copy_((0.5 * torch.randn(co.bias.shape, generator=g)).to(co.bias))
-    spread = _condition_heads(packs, lambda: net.encode_and_decode(model._nchw(batches[0]["lq"])))
+    spread = _condition_heads(packs, lambda: net.encode_and_decode(model._nchw(s1_batch(300, lq=True)["lq"])))
     model.init_ema(net)
     for pack in packs:
         require(pack.impl == "xla", "the LQ warp is not the exact DCN")
+    return model, packs, spread, build_s, hq_path
+
+
+def phase_train_stage1_lq_path(hq_path=None):
+    """The LQ stage of the same conf (LQ_stage, use_weight, frozen_module_keywords
+    S1_FROZEN), net_hq and the starting generator from the HQ phase's net_g file
+    (pretrain_network_hq, strict=False; without the HQ phase, a seeded HQ model's),
+    the codebook usage weight seeded (N(0, 0.05^2)) so the weighted distance moves
+    the argmin, the zero-initialized warp heads given small seeded weights and set
+    off the integer grid (condition_offset_heads' rule), synthetic pairs. The path: a warm-up and three timed iterations, each
+    launching exactly 2 f32 DCN forwards and 2 backward passes with grad_x and no
+    plain version, frozen tensors bit-equal. Then one iteration's losses and
+    gradients through the kernels against the same iteration through the plain
+    versions (the DCN: autograd of modulated_deform_conv_ref)."""
+    model, packs, spread, build_s, hq_path = _s1_lq_model(hq_path)
+    batches = [s1_batch(300 + i, lq=True) for i in range(5)]
     per_step = {**{k: 0 for k in counters()}, "dcn_fwd_f32": 2, "dcn_bwd": 2}
     bwd_per_step = {**{k: 0 for k in dcn_ops.bwd_launches_by_entry}, "pass_x": 2}
     summary, path_counts, peak_mem = _s1_iterations(model, batches[:4], per_step, bwd_per_step)
@@ -3572,6 +3604,375 @@ def phase_train_stage1_lq_path(hq_path=None):
           "expected_bwd_per_step": bwd_per_step, "max_memory_allocated": peak_mem,
           "kernel_vs_plain_iteration": cmp})
     return path_counts, model
+
+
+# ------------------------------------------------- the rest of sr/ and legacy --
+
+SWINIR_M = {"type": "SwinIR", "upscale": 4, "in_chans": 3, "img_size": 64, "window_size": 8, "img_range": 1.0,
+            "depths": [6] * 6, "embed_dim": 180, "num_heads": [6] * 6, "mlp_ratio": 2,
+            "upsampler": "pixelshuffle", "resi_connection": "1conv"}
+HELD_REL_TOL = 1e-4        # a network's output on the card against the CPU: of the output's largest
+DEGRADE_ABS_TOL = 1e-5     # DiffJPEG / USMSharp / filter2D on the card against the CPU, absolute on [0, 1]
+TIE_BAND = 1e-4            # a rounding (DCT) or threshold (USM) input this close may decide apart
+EMA_TOL = 1e-5             # the EMA codebook buffers, card against CPU: of each buffer's largest
+
+
+def _no_kernel_moved(before, what):
+    """No kernel launched since ``before``. -> the counts moved (all 0)."""
+    moved = moved_since(before)
+    require(not any(moved.values()), f"{what} launched a kernel: {moved}")
+    return moved
+
+
+def _timed(fn, reps=3):
+    """A warm-up call, then ``reps`` calls on the host clock around synchronize
+    -> (the last output, [ms])."""
+    out, _ = sync_ms(fn)
+    ms = []
+    for _ in range(reps):
+        out, t = sync_ms(fn)
+        ms.append(t)
+    return out, ms
+
+
+def _held(card, cpu, what):
+    """Max |card - cpu| over the CPU output's largest, required <= HELD_REL_TOL."""
+    card = card.detach().double().cpu()
+    cpu = cpu.detach().double()
+    err = float((card - cpu).abs().max() / cpu.abs().max().clamp_min(1e-30))
+    require(bool(torch.isfinite(card).all()) and err <= HELD_REL_TOL, f"{what}: card against CPU {err}")
+    return err
+
+
+def _smooth_images(seed, batch, h, w):
+    """Seeded smooth colour fields plus noise in [0, 1], NCHW float32 (CPU)."""
+    g = torch.Generator().manual_seed(seed)
+    low = torch.rand((batch, 3, max(h // 16, 2), max(w // 16, 2)), generator=g)
+    img = torch.nn.functional.interpolate(low, size=(h, w), mode="bilinear", align_corners=False)
+    return (img + 0.03 * torch.randn(img.shape, generator=g)).clamp(0, 1)
+
+
+def phase_swinir_path():
+    """SwinIR-M, the SwinIR authors' classical-SR x4 configuration (main_test_swinir.py,
+    classical_sr: window 8, depths and heads [6] * 6, embed_dim 180, mlp_ratio 2,
+    pixelshuffle, 1conv), seeded weights, float32: one 3x256x256 image to
+    1024x1024, batch 1, a warm-up and three timed calls (no kernel: window
+    attention is plain torch, as JAX computes it outside Pallas). Then the same
+    network on a 1x3x64x64 crop, card against CPU (TF32 off)."""
+    import copy
+
+    from glare_tpu_torch.nn.layers import seed_init_
+    from glare_tpu_torch.sr.archs import build_network
+
+    require(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    cpu_net = seed_init_(build_network(dict(SWINIR_M)), torch.Generator().manual_seed(21)).eval()
+    net = copy.deepcopy(cpu_net).to(DEV)
+    x = _smooth_images(22, 1, 256, 256).to(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    before = counters()
+    with torch.no_grad():
+        out, ms = _timed(lambda: net(x))
+    moved = _no_kernel_moved(before, "swinir_path")
+    require(tuple(out.shape) == (1, 3, 1024, 1024) and bool(torch.isfinite(out).all()), f"SwinIR {out.shape}")
+    peak = torch.cuda.max_memory_allocated()
+    crop = x[:, :, :64, :64]
+    with torch.no_grad():
+        err = _held(net(crop), cpu_net(crop.cpu()), "SwinIR 64x64")
+    emit({"phase": "swinir_path", "config": {k: v for k, v in SWINIR_M.items() if k != "type"},
+          "parameters": sum(p.numel() for p in net.parameters()), "input": [1, 3, 256, 256],
+          "output": list(out.shape), "ms_per_image": statistics.median(ms), "ms_calls": ms,
+          "max_memory_allocated": peak,
+          "held_64x64": {"max_abs_err_of_largest": err, "tol": HELD_REL_TOL}})
+    return moved
+
+
+def _jpeg_flips(x_card, x_cpu, q_card, q_cpu):
+    """DCT coefficients whose rounding differs between card and CPU: each must lie
+    within TIE_BAND of a rounding boundary. -> (a [B, H, W] mask of the image
+    pixels those coefficients reach, flips, near-ties on the CPU)."""
+    from glare_tpu_torch.sr.utils.diffjpeg import quantized_coefficients
+
+    qk, _, (hp, wp) = quantized_coefficients(x_card, q_card)
+    qc, _, _ = quantized_coefficients(x_cpu, q_cpu)
+    b, _, h, w = x_cpu.shape
+    reach = torch.zeros((b, hp, wp), dtype=torch.bool)
+    flips = ties = 0
+    for name in qc:
+        a, c = qk[name].cpu(), qc[name]
+        frac_gap = ((c - torch.floor(c)) - 0.5).abs()
+        ties += int((frac_gap < TIE_BAND).sum())
+        differ = torch.round(a) != torch.round(c)
+        require(bool((frac_gap[differ] < TIE_BAND).all()), f"DiffJPEG {name}: a rounding flip off a near-tie")
+        flips += int(differ.sum())
+        px = 8 if name == "y" else 16
+        blocks = differ.any(dim=(2, 3)).reshape(b, hp // px, wp // px)
+        reach |= blocks.repeat_interleave(px, 1).repeat_interleave(px, 2)
+    return reach[:, :h, :w], flips, ties
+
+
+def _abs_outside(card, cpu, reach, what):
+    """Max |card - cpu| outside ``reach`` ([B, H, W]), required <= DEGRADE_ABS_TOL."""
+    d = (card.detach().cpu() - cpu.detach()).abs().amax(dim=1)
+    err = float(d[~reach].max()) if bool((~reach).any()) else 0.0
+    require(err <= DEGRADE_ABS_TOL, f"{what}: card against CPU {err}")
+    return err
+
+
+def phase_degradation_path():
+    """The Real-ESRGAN-style device degradations on a batch of 12 crops at 256x256:
+    DiffJPEG with per-sample quality in [30, 95], differentiable (with one backward)
+    and hard; USMSharp() (radius 50 -> 51); filter2D with per-sample 21x21
+    kernels. Each against the same call on the CPU in float32 within
+    DEGRADE_ABS_TOL, except the image blocks of DCT coefficients that round apart
+    (each within TIE_BAND of a boundary) and the reach of USM mask pixels that
+    decide apart (each residual within TIE_BAND of the threshold): counted.
+    Timed: ms per batch."""
+    from glare_tpu_torch.sr.utils.diffjpeg import DiffJPEG
+    from glare_tpu_torch.sr.utils.img_process_util import USMSharp, filter2D
+
+    g = torch.Generator().manual_seed(31)
+    x_cpu = _smooth_images(32, 12, 256, 256)
+    q_cpu = 30.0 + 65.0 * torch.rand(12, generator=g)
+    w_cpu = torch.randn(x_cpu.shape, generator=g)
+    ks = torch.arange(21, dtype=torch.float32) - 10
+    sig = 0.5 + 3.5 * torch.rand((12, 2), generator=g)
+    k_cpu = torch.exp(-(ks[None, :, None] ** 2) / (2 * sig[:, :1, None] ** 2)
+                      - (ks[None, None, :] ** 2) / (2 * sig[:, 1:, None] ** 2))
+    k_cpu = k_cpu / k_cpu.sum(dim=(1, 2), keepdim=True)
+    x, q, w, k = x_cpu.to(DEV), q_cpu.to(DEV), w_cpu.to(DEV), k_cpu.to(DEV)
+    usm, usm_cpu = USMSharp().to(DEV), USMSharp()
+    torch.cuda.reset_peak_memory_stats()
+    before = counters()
+    out, ms, held = {}, {}, {}
+    with torch.no_grad():
+        for mode, diff in (("diffjpeg_differentiable", True), ("diffjpeg_hard", False)):
+            out[mode], ms[mode] = _timed(lambda: DiffJPEG(diff)(x, q))
+        out["usm_sharp"], ms["usm_sharp"] = _timed(lambda: usm(x))
+        out["filter2d"], ms["filter2d"] = _timed(lambda: filter2D(x, k))
+
+    def jpeg_backward(xx, qq, ww):
+        xx = xx.detach().requires_grad_(True)
+        (DiffJPEG(True)(xx, qq) * ww).sum().backward()
+        return xx.grad
+
+    out["diffjpeg_backward"], ms["diffjpeg_backward"] = _timed(lambda: jpeg_backward(x, q, w))
+    moved = _no_kernel_moved(before, "degradation_path")
+    peak = torch.cuda.max_memory_allocated()
+
+    reach, flips, ties = _jpeg_flips(x, x_cpu, q, q_cpu)
+    for mode, diff in (("diffjpeg_differentiable", True), ("diffjpeg_hard", False)):
+        with torch.no_grad():
+            err = _abs_outside(out[mode], DiffJPEG(diff)(x_cpu, q_cpu), reach, mode)
+        held[mode] = {"max_abs_err": err, "coefficients_rounded_apart": flips, "coefficients_near_tie_cpu": ties,
+                      "pixels_excluded": int(reach.sum())}
+    err = _abs_outside(out["diffjpeg_backward"], jpeg_backward(x_cpu, q_cpu, w_cpu), reach, "DiffJPEG backward")
+    held["diffjpeg_backward"] = {"max_abs_err": err, "pixels_excluded": int(reach.sum())}
+    with torch.no_grad():
+        res_k, mask_k = usm.mask(x)
+        res_c, mask_c = usm_cpu.mask(x_cpu)
+        gap = (res_c.abs() - 10 / 255).abs()
+        apart = mask_k.cpu() != mask_c
+        require(bool((gap[apart] < TIE_BAND).all()), "USMSharp: a mask pixel decided apart off the threshold")
+        reach_usm = filter2D(apart.float(), usm_cpu.kernel).amax(dim=1) > 0
+        err = _abs_outside(out["usm_sharp"], usm_cpu(x_cpu), reach_usm, "USMSharp")
+        held["usm_sharp"] = {"max_abs_err": err, "mask_pixels_apart": int(apart.sum()),
+                             "residuals_near_threshold_cpu": int((gap < TIE_BAND).sum()),
+                             "pixels_excluded": int(reach_usm.sum())}
+        err = _abs_outside(out["filter2d"], filter2D(x_cpu, k_cpu), torch.zeros_like(reach), "filter2D")
+        held["filter2d"] = {"max_abs_err": err}
+    emit({"phase": "degradation_path", "batch": list(x.shape), "quality": [round(float(v), 2) for v in q_cpu],
+          "usm_radius": usm.radius, "filter2d_kernel": [21, 21],
+          "ms_per_batch": {key: statistics.median(v) for key, v in ms.items()}, "ms_calls": ms,
+          "max_memory_allocated": peak, "held": held,
+          "tol": f"{DEGRADE_ABS_TOL} absolute; decisions within {TIE_BAND} of a rounding boundary or of the "
+                 "USM threshold may go apart (their reach excluded, counted)"})
+    return moved
+
+
+HAZE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_haze")
+
+
+def _haze_folder(n=8, h=400, w=600):
+    """Seeded GT PNGs (smooth colour fields + noise) and their depth .npy (a
+    smooth field), the layout HazeOnlineDataset reads."""
+    import shutil
+
+    import cv2
+
+    shutil.rmtree(HAZE_DIR, ignore_errors=True)
+    gt_dir, depth_dir = os.path.join(HAZE_DIR, "gt"), os.path.join(HAZE_DIR, "depth")
+    os.makedirs(gt_dir)
+    os.makedirs(depth_dir)
+    imgs = _smooth_images(41, n, h, w)
+    rng = np.random.default_rng(42)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for i in range(n):
+        rgb = (imgs[i].permute(1, 2, 0).numpy() * 255).round().astype(np.uint8)
+        cv2.imwrite(os.path.join(gt_dir, f"{i:03d}.png"), rgb[:, :, ::-1])
+        a, b = rng.uniform(0.5, 2.0, 2)
+        depth = 5.0 + yy / h * 10 * a + 2 * np.sin(xx / (40 * b)) + rng.normal(0, 0.1, (h, w))
+        np.save(os.path.join(depth_dir, f"{i:03d}.npy"), depth.astype(np.float32))
+    return gt_dir, depth_dir
+
+
+def phase_haze_lq_path(model=None):
+    """RIDCP's dehazing data path into the LQ stage: HazeOnlineDataset (phase train,
+    gt_size 256, the JAX defaults for beta_range, A_range, color_p, color_range)
+    over eight seeded 400x600 GT images and their depth maps, through sr.data's
+    build_dataloader at batch 4 (Python's random and np.random seeded; two epochs,
+    the second's host time reported), then two LQ iterations, on the second
+    epoch's batches, of the model of train_stage1_lq_path (``model``; without it the
+    same model built here): each exactly 2 f32 DCN forwards and 2 backward passes
+    with grad_x, finite losses (_s1_iterations' checks). Timed: host ms per
+    dataset item beside ms per iteration."""
+    import random
+    import shutil
+
+    from glare_tpu_torch.sr.data import build_dataloader, build_dataset
+
+    gt_dir, depth_dir = _haze_folder()
+    opt = {"type": "HazeOnlineDataset", "phase": "train", "gt_size": S1_GT, "dataroot_gt": gt_dir,
+           "dataroot_depth": depth_dir, "batch_size_per_gpu": S1_BATCH}
+    dataset = build_dataset(opt)
+    require(len(dataset) == 8, f"HazeOnlineDataset found {len(dataset)} images")
+    random.seed(0)
+    np.random.seed(0)
+    loader = build_dataloader(dataset, opt, seed=0)
+    item_ms = []
+    for epoch in range(2):  # the first epoch pays one-time imports (scipy.linalg for the correlated noise)
+        batches, it = [], iter(loader)
+        while True:  # the loader builds each batch when asked: time the asking and the copy to the card
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                break
+            batches.append({k: (torch.from_numpy(v).to(DEV) if isinstance(v, np.ndarray) else v)
+                            for k, v in batch.items()})
+            torch.cuda.synchronize()
+            item_ms.append((time.perf_counter() - t0) * 1e3 / S1_BATCH)
+    require(len(batches) == 2 and all(b["lq"].shape == (S1_BATCH, S1_GT, S1_GT, 3) for b in batches),
+            f"haze batches {[tuple(b['lq'].shape) for b in batches]}")
+    value_range = {}  # the bicubic resize may ring a little past [0, 1], as in the reference
+    for k in ("lq", "gt"):
+        require(all(bool(torch.isfinite(b[k]).all()) for b in batches), f"haze batch {k} not finite")
+        value_range[k] = [min(float(b[k].min()) for b in batches), max(float(b[k].max()) for b in batches)]
+    shutil.rmtree(HAZE_DIR, ignore_errors=True)
+    built = model is None
+    if built:
+        model = _s1_lq_model()[0]
+    per_step = {**{k: 0 for k in counters()}, "dcn_fwd_f32": 2, "dcn_bwd": 2}
+    bwd_per_step = {**{k: 0 for k in dcn_ops.bwd_launches_by_entry}, "pass_x": 2}
+    summary, path_counts, peak_mem = _s1_iterations(model, batches, per_step, bwd_per_step, first_iter=2001)
+    emit({"phase": "haze_lq_path", "dataset": {k: v for k, v in opt.items() if not k.startswith("dataroot")},
+          "images": [8, 400, 600], "lq_model": "built here" if built else "train_stage1_lq_path's",
+          "host_ms_per_item": statistics.mean(item_ms[len(item_ms) // 2:]), "host_ms_per_item_by_batch": item_ms,
+          "value_range": value_range,
+          **summary, "launches_total": path_counts, "expected_per_step": per_step,
+          "expected_bwd_per_step": bwd_per_step, "max_memory_allocated": peak_mem})
+    return path_counts
+
+
+def _near_tie_rows(scores, got, want, pick_max):
+    """Indices that differ between card and CPU, each only where the two choices'
+    float64 scores agree to 1e-6 relative. -> the number that differ."""
+    differ = (got.cpu() != want).reshape(-1)
+    s = scores.reshape(differ.shape[0], -1)
+    g, w = got.cpu().reshape(-1)[differ], want.reshape(-1)[differ]
+    rows = s[differ]
+    a = rows.gather(1, g[:, None].long())[:, 0]
+    b = rows.gather(1, w[:, None].long())[:, 0]
+    require(bool(((a - b).abs() <= 1e-6 * b.abs().clamp_min(1e-30)).all()),
+            f"{int(differ.sum())} indices apart off a near-tie ({'argmax' if pick_max else 'argmin'})")
+    return int(differ.sum())
+
+
+def phase_legacy_path():
+    """The legacy networks at 600x400, float32, seeded weights: RRDBNet at ESRGAN's
+    widths (nf 64, nb 23, gc 32, get_steps=True) and ColorEncoder(nf 64), a warm-up
+    and three timed calls each; both on a 64x64 crop card against CPU. The two
+    quantizer variants: GumbelQuantize in eval (taming's f8 widths: 256 hidden,
+    8192 codes of 256) and EMAVectorQuantizer (1024 codes of 256) with one
+    update=True, on tokens near the codebook, card against CPU: indices apart
+    only at a near-tie (1e-6 relative, float64 scores), the EMA buffers within
+    EMA_TOL."""
+    import copy
+
+    from glare_tpu_torch.modules import legacy_archs, quantize
+    from glare_tpu_torch.nn.layers import seed_init_
+
+    g = torch.Generator().manual_seed(51)
+    x = _smooth_images(52, 1, 400, 600).to(DEV)
+    report = {}
+    torch.cuda.reset_peak_memory_stats()
+    before = counters()
+    for name, cpu_net, call in (
+            ("RRDBNet", legacy_archs.RRDBNet(nf=64, nb=23, gc=32), lambda n, t: n(t, get_steps=True)),
+            ("ColorEncoder", legacy_archs.ColorEncoder(nf=64), lambda n, t: n(t))):
+        cpu_net = seed_init_(cpu_net, g).eval()
+        net = copy.deepcopy(cpu_net).to(DEV)
+        with torch.no_grad():
+            out, ms = _timed(lambda: call(net, x))
+            outs = out if isinstance(out, dict) else {"out": out}
+            crop = x[:, :, :64, :64]
+            card, cpu = call(net, crop), call(cpu_net, crop.cpu())
+        card, cpu = (card, cpu) if isinstance(card, dict) else ({"out": card}, {"out": cpu})
+        errs = {k: _held(card[k], cpu[k], f"{name} {k}") for k in cpu if cpu[k] is not None}
+        report[name] = {"ms": statistics.median(ms), "ms_calls": ms,
+                        "outputs": {k: list(v.shape) for k, v in outs.items() if v is not None},
+                        "held_64x64": errs}
+        del net
+    peak = torch.cuda.max_memory_allocated()
+
+    z_cpu = torch.randn((4, 256, 32, 32), generator=g)
+    gq_cpu = seed_init_(quantize.GumbelQuantize(256, 256, 8192), g).eval()
+    gq = copy.deepcopy(gq_cpu).to(DEV)
+    z = z_cpu.to(DEV)
+    with torch.no_grad():
+        (zq, kl, (_, _, ind)), ms = _timed(lambda: gq(z))
+        zq_c, kl_c, (_, _, ind_c) = gq_cpu(z_cpu)
+        p = gq_cpu.proj
+        scores = torch.nn.functional.conv2d(z_cpu.double(), p.weight.double(), p.bias.double())
+    apart = _near_tie_rows(scores.permute(0, 2, 3, 1), ind, ind_c, True)
+    same = (ind.cpu() == ind_c)[:, None].expand_as(zq_c)
+    zq_err = float((zq.cpu() - zq_c).abs()[same].max())
+    kl_err = abs(float(kl) - float(kl_c)) / abs(float(kl_c))
+    require(zq_err <= 1e-5 and kl_err <= 1e-5, f"GumbelQuantize z_q {zq_err}, kl {kl_err}")
+    report["GumbelQuantize_eval"] = {"ms": statistics.median(ms), "ms_calls": ms, "z": list(z_cpu.shape),
+                                     "n_embed": gq.n_embed, "indices_apart_at_near_tie": apart,
+                                     "z_q_max_abs_err": zq_err, "kl_rel_err": kl_err}
+
+    ema_cpu = seed_init_(quantize.EMAVectorQuantizer(1024, 256), g)
+    book0 = ema_cpu.embedding.weight.clone().double()
+    codes = torch.randint(0, 1024, (4 * 32 * 32,), generator=g)
+    tokens = book0.float()[codes] + 0.3 * torch.randn((4 * 32 * 32, 256), generator=g)
+    z_cpu = tokens.reshape(4, 32, 32, 256).permute(0, 3, 1, 2).contiguous()
+    ema = copy.deepcopy(ema_cpu).to(DEV)
+    z = z_cpu.to(DEV)
+    (zq, loss, (perp, _, idx)), ms = sync_ms(lambda: ema(z, update=True))
+    zq_c, loss_c, (perp_c, _, idx_c) = ema_cpu(z_cpu, update=True)
+    zf = tokens.double()
+    dist = (zf ** 2).sum(1, keepdim=True) + (book0 ** 2).sum(1)[None] - 2 * zf @ book0.t()
+    apart = _near_tie_rows(dist, idx, idx_c, False)
+    rows = torch.ones(1024, dtype=torch.bool)  # codes a token moved between are left out of the buffers' check
+    differ = idx.cpu().reshape(-1) != idx_c.reshape(-1)
+    rows[idx.cpu().reshape(-1)[differ]] = False
+    rows[idx_c.reshape(-1)[differ]] = False
+    errs = {}
+    for key in ("weight", "cluster_size", "embed_avg"):
+        a, b = getattr(ema.embedding, key).cpu()[rows].double(), getattr(ema_cpu.embedding, key)[rows].double()
+        errs[key] = float((a - b).abs().max() / b.abs().max())
+        require(errs[key] <= EMA_TOL, f"EMAVectorQuantizer {key}: card against CPU {errs[key]}")
+    loss_err = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+    perp_err = abs(float(perp) - float(perp_c)) / abs(float(perp_c))
+    require(loss_err <= 1e-5 and perp_err <= 1e-5, f"EMAVectorQuantizer loss {loss_err}, perplexity {perp_err}")
+    report["EMAVectorQuantizer_update"] = {"ms_first_call": ms, "z": list(z_cpu.shape), "n_embed": ema.n_embed,
+                                           "tokens": "codebook rows + N(0, 0.3^2) noise",
+                                           "indices_apart_at_near_tie": apart, "buffers_rel_err": errs,
+                                           "loss_rel_err": loss_err, "perplexity_rel_err": perp_err,
+                                           "codes_used": int(torch.unique(idx_c).numel())}
+    moved = _no_kernel_moved(before, "legacy_path")
+    emit({"phase": "legacy_path", "input": list(x.shape), "max_memory_allocated": peak, **report})
+    return moved
 
 
 def _category(name):
@@ -3649,7 +4050,8 @@ PATHS = {"vq_argmin": "main_path", "attn_hopper": "main_path", "attn_wmma": None
 # a row whose launches are another row's counter (the same entry on another path)
 COUNTER_OF = {"dcn_hopper_train": "dcn_hopper"}
 ALL_PHASES = ("device,build,kernels,main_path,eval_path,hybrid_path,gather_path,flow_path,stage2_path,"
-              "train_path,train_path_bf16,train_stage2_path,train_stage1_path,train_stage1_lq_path")
+              "train_path,train_path_bf16,train_stage2_path,train_stage1_path,train_stage1_lq_path,"
+              "haze_lq_path,swinir_path,degradation_path,legacy_path")
 
 
 def main():
@@ -3726,6 +4128,7 @@ def main():
                               "the same with torch.backends.cudnn.benchmark (convolution algorithms timed)")
         del model
         torch.cuda.empty_cache()
+    model = None
     if "train_stage1_lq_path" in phases:
         counts["train_stage1_lq_path"], model = phase_train_stage1_lq_path(hq_path)
         if args.profile:
@@ -3735,7 +4138,19 @@ def main():
             with _cudnn_benchmark():
                 phase_profile(lambda: model.optimize_parameters(1001, batch),
                               "the same with torch.backends.cudnn.benchmark (convolution algorithms timed)")
-        del model
+    if "haze_lq_path" in phases:
+        counts["haze_lq_path"] = phase_haze_lq_path(model)
+    del model
+    torch.cuda.empty_cache()
+    if "swinir_path" in phases:
+        counts["swinir_path"] = phase_swinir_path()
+        torch.cuda.empty_cache()
+    if "degradation_path" in phases:
+        counts["degradation_path"] = phase_degradation_path()
+        torch.cuda.empty_cache()
+    if "legacy_path" in phases:
+        counts["legacy_path"] = phase_legacy_path()
+        torch.cuda.empty_cache()
     if any(ph not in phases for ph in ALL_PHASES.split(",")):
         emit({"partial": True, "phases": phases, "seconds": round(time.time() - t_start, 1)})
         return

@@ -3,8 +3,12 @@
 ``flax_to_torch_vqgan(params)``, ``flax_to_torch_stage2(params)``,
 ``flax_to_torch_stage3(params)``, ``flax_to_torch_vgg16(params)`` (the
 perceptual loss's ``VGG16Features``), ``flax_to_torch_stage1(params,
-spectral=None)`` (the stage-1 ``VQWeightDehazeNet`` or ``UNetDiscriminatorSN``)
-and ``flax_to_torch_vgg(params)`` (``sr/archs/vgg_arch.VGGFeatureExtractor``) take nested
+spectral=None)`` (the stage-1 ``VQWeightDehazeNet`` or ``UNetDiscriminatorSN``),
+``flax_to_torch_vgg(params)`` (``sr/archs/vgg_arch.VGGFeatureExtractor``),
+``flax_to_torch_swinir(params)``, ``flax_to_torch_rrdbnet(params)``,
+``flax_to_torch_legacy(params, batch_stats)`` (``ColorEncoder`` and the base
+layers of ``modules/legacy_archs``), ``flax_to_torch_gumbel(params)`` and
+``flax_to_torch_ema(ema)`` (the two quantizer variants) take nested
 dicts of numpy arrays (what ``flax.serialization.to_state_dict`` or
 ``jax.tree_util.tree_map(np.asarray, params)`` give) and return a ``state_dict``
 of torch tensors under the reference PyTorch names. The first three are the
@@ -328,3 +332,138 @@ def flax_to_torch_vgg(params):
     for name, node in params.items():
         _put_conv(sd, f"vgg_net.{name}", node)
     return sd
+
+
+def flax_to_torch_swinir(params):
+    """flax ``SwinIR`` params -> the port's ``SwinIR`` ``state_dict`` (the
+    reference's names; the inverse of ``convert_swinir``):
+      conv_first, norm                  -> the same
+      patch_norm                        -> patch_embed.norm
+      absolute_pos_embed                -> the same
+      layer_{i}                         -> layers.{i} (``_put_rstb``)
+      conv_after_body | cab_conv{0,1,2} -> conv_after_body | conv_after_body.{0,2,4}
+      conv_before_upsample              -> conv_before_upsample.0
+      upsample/conv{n}                  -> upsample.{2n} (the pixel-shuffle Sequential)
+      upsample_conv                     -> upsample.0 (pixelshuffledirect)
+      conv_up1, conv_up2, conv_hr, conv_last -> the same"""
+    params = params.get("params", params)
+    sd = {}
+    for key, node in params.items():
+        if key.startswith("layer_"):
+            _put_rstb(sd, f"layers.{int(key.split('_')[1])}", node)
+        elif key == "patch_norm":
+            _put_layernorm(sd, "patch_embed.norm", node)
+        elif key == "norm":
+            _put_layernorm(sd, "norm", node)
+        elif key == "absolute_pos_embed":
+            sd[key] = _t(node)
+        elif key.startswith("cab_conv"):
+            _put_conv(sd, f"conv_after_body.{2 * int(key[-1])}", node)
+        elif key == "conv_before_upsample":
+            _put_conv(sd, "conv_before_upsample.0", node)
+        elif key == "upsample":
+            for name, conv in node.items():
+                _put_conv(sd, f"upsample.{2 * int(name[4:])}", conv)
+        elif key == "upsample_conv":
+            _put_conv(sd, "upsample.0", node)
+        elif key in ("conv_first", "conv_after_body", "conv_up1", "conv_up2", "conv_hr", "conv_last"):
+            _put_conv(sd, key, node)
+        else:
+            raise KeyError(f"flax_to_torch_swinir: unknown subtree {key!r}")
+    return sd
+
+
+# ------------------------------------------------------------ legacy modules --
+
+_LEGACY_NAMES = {"mlp1": "sharedMLP.0", "mlp2": "sharedMLP.2", "cbr1": "conv_bn_relu_1",
+                 "cbr2": "conv_bn_relu_2", "cbr4": "conv_bn_relu_4", "deconv2": "deconv_2",
+                 "deconv41": "deconv_4_1", "deconv42": "deconv_4_2"}
+
+
+def _put_deconv(sd, name, node):
+    """flax ConvTranspose kernel (kh, kw, in, out), applied unflipped -> torch
+    ConvTranspose2d weight (in, out, kh, kw), spatially flipped."""
+    sd[f"{name}.weight"] = _t(np.asarray(node["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1))
+    sd[f"{name}.bias"] = _t(node["bias"])
+
+
+def _put_bn(sd, name, node, stats):
+    sd[f"{name}.weight"] = _t(node["scale"])
+    sd[f"{name}.bias"] = _t(node["bias"])
+    sd[f"{name}.running_mean"] = _t(stats["mean"])
+    sd[f"{name}.running_var"] = _t(stats["var"])
+    sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _put_legacy(sd, prefix, node, stats):
+    for key, sub in node.items():
+        st = stats.get(key, {})
+        if key == "conv" and "bn" in node:  # ConvBNRelu
+            _put_conv(sd, f"{prefix}conv_bn_relu.0", sub)
+        elif key == "bn":
+            _put_bn(sd, f"{prefix}conv_bn_relu.1", sub, st)
+        elif key == "conv" and set(node) == {"conv"} and "bias" in sub:  # Conv2D
+            _put_conv(sd, f"{prefix}conv_relu.0", sub)
+        elif key == "deconv":  # ConvTranspose2D
+            _put_deconv(sd, f"{prefix}deconv_relu.0", sub)
+        elif key == "bn1":  # ResConv: bn2 exists in the port (the reference's, unused) with defaults
+            _put_bn(sd, f"{prefix}bn1", sub, st)
+            n = np.asarray(sub["scale"]).shape[0]
+            _put_bn(sd, f"{prefix}bn2", {"scale": np.ones(n), "bias": np.zeros(n)},
+                    {"mean": np.zeros(n), "var": np.ones(n)})
+        elif "kernel" in sub:  # a plain conv, with or without bias
+            name = f"{prefix}{_LEGACY_NAMES.get(key, key)}"
+            sd[f"{name}.weight"] = _conv_w(sub["kernel"])
+            if "bias" in sub:
+                sd[f"{name}.bias"] = _t(sub["bias"])
+        else:
+            _put_legacy(sd, f"{prefix}{_LEGACY_NAMES.get(key, key)}.", sub, st)
+
+
+def flax_to_torch_legacy(params, batch_stats=None):
+    """flax ``ColorEncoder`` or base-layer params (``Conv2D``, ``ConvTranspose2D``,
+    ``ConvBNRelu``, ``DoubleConv``, ``ChannelAttention``, ``SpatialAttention``,
+    ``CBAM``, ``ResConv``, ``MSIA``) and their ``batch_stats`` -> the port's
+    ``modules/legacy_archs`` ``state_dict``:
+      Conv2D conv                 -> conv_relu.0
+      ConvTranspose2D deconv      -> deconv_relu.0 (kernel flipped, (in, out, kh, kw))
+      ConvBNRelu conv / bn        -> conv_bn_relu.0 / conv_bn_relu.1 (+ running_mean / var)
+      mlp1 / mlp2                 -> sharedMLP.0 / sharedMLP.2
+      cbr{1,2,4}, deconv2, deconv4{1,2} -> conv_bn_relu_{1,2,4}, deconv_2, deconv_4_{1,2}
+      ResConv bn1                 -> bn1; bn2 (unused) gets BatchNorm's defaults
+    every other name as it is."""
+    sd = {}
+    _put_legacy(sd, "", params.get("params", params), batch_stats or {})
+    return sd
+
+
+def flax_to_torch_rrdbnet(params):
+    """flax ``RRDBNet`` params -> the port's (the reference's names):
+    trunk_{i}/RDB{k}/conv{n} -> RRDB_trunk.{i}.RDB{k}.conv{n}; conv_first,
+    trunk_conv, upconv{1..5}, HRconv, conv_last as they are."""
+    sd = {}
+    for key, node in params.get("params", params).items():
+        m = re.match(r"^trunk_(\d+)$", key)
+        if m:
+            for rdb, convs in node.items():
+                for conv, leaf in convs.items():
+                    _put_conv(sd, f"RRDB_trunk.{m.group(1)}.{rdb}.{conv}", leaf)
+        else:
+            _put_conv(sd, key, node)
+    return sd
+
+
+def flax_to_torch_gumbel(params):
+    """flax ``GumbelQuantize`` params -> ``proj.{weight, bias}``, ``embed.weight``
+    (the buffer ``used`` comes from the module's ``remap``)."""
+    params = params.get("params", params)
+    sd = {"embed.weight": _t(params["embed"])}
+    _put_conv(sd, "proj", params["proj"])
+    return sd
+
+
+def flax_to_torch_ema(ema):
+    """The flax ``EMAVectorQuantizer``'s ``ema`` collection -> the buffers
+    ``embedding.{weight, cluster_size, embed_avg}``."""
+    ema = ema.get("ema", ema)
+    return {f"embedding.{k}": _t(ema[k]) for k in ("weight", "cluster_size", "embed_avg")}

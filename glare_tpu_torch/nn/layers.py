@@ -47,16 +47,19 @@ def at_least_float32(t):
 
 class Conv(nn.Conv2d):
     """``nn.Conv2d`` that computes in ``compute_dtype`` (None: the weight's dtype):
-    input, weight and bias are cast to it at use. Optional zero init."""
+    input, weight and bias are cast to it at use. Optional zero init; ``bias=False``
+    leaves the bias out."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1, padding=0,
-                 zero_init=False):
-        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding)
+                 zero_init=False, bias=True):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding,
+                         bias=bias)
         self.zero_init = zero_init
         self.compute_dtype = None
         if zero_init:
             nn.init.zeros_(self.weight)
-            nn.init.zeros_(self.bias)
+            if self.bias is not None:
+                nn.init.zeros_(self.bias)
 
     def seeded_reset(self, generator):
         if self.zero_init:
@@ -65,7 +68,8 @@ class Conv(nn.Conv2d):
         bound = 1.0 / math.sqrt(fan_in)
         with torch.no_grad():
             self.weight.uniform_(-bound, bound, generator=generator)
-            self.bias.uniform_(-bound, bound, generator=generator)
+            if self.bias is not None:
+                self.bias.uniform_(-bound, bound, generator=generator)
 
     @property
     def dtype(self):
@@ -73,7 +77,24 @@ class Conv(nn.Conv2d):
 
     def forward(self, x):
         dt = self.dtype
-        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class ScaledKaimingConv(Conv):
+    """``Conv`` with ``default_init_weights``' init (arch_util.py:17-44):
+    ``kaiming_normal`` (fan_in, a = 0) times ``scale``, bias 0."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=3, stride=1, padding=1, scale=0.1):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding)
+        self.init_scale = scale
+        self.seeded_reset(None)
+
+    def seeded_reset(self, generator):
+        fan_in = self.weight[0].numel()
+        with torch.no_grad():
+            self.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator).mul_(self.init_scale)
+            self.bias.zero_()
 
 
 class GroupNorm32(nn.GroupNorm):

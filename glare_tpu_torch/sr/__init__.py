@@ -7,8 +7,10 @@ tracking, datasets, metrics and the config-driven train / test pipelines.
 
     python -m glare_tpu_torch.sr.train -opt confs/stage1_HQ_pretrain.yml [--device cpu]
 
-Not ported yet: ``archs/swinir_arch.py``, ``archs/arch_util.py``,
-``data/haze_online_dataset.py`` with ``utils/{diffjpeg,img_process_util}.py``,
-and ``utils/{lmdb_util,face_util,flow_util}.py``;
-``utils/download_util.py`` is not ported by rule (nothing in the port fetches).
+Also the rest of the vendored tree: the full ``SwinIR`` (``archs/swinir_arch.py``
+on ``archs/arch_util.py``), RIDCP's on-the-fly haze synthesis
+(``data/haze_online_dataset.py``), the device degradations ``utils/diffjpeg.py``
+and ``utils/img_process_util.py`` (``filter2D``, ``USMSharp``), and the host
+utilities ``utils/{lmdb_util,flow_util,face_util}.py``. ``utils/download_util.py``
+is not ported by rule (nothing in the port fetches).
 """

@@ -2,7 +2,7 @@
 reference: basicsr/data/__init__.py), on the port's ``data/loader.py``.
 
 One process, one device: there is no ``EnlargedSampler`` (rank-sharded
-sampling belongs to data parallelism, ROADMAP.md queue 1, item 2), and
+sampling belongs to data parallelism, ROADMAP.md queue 1, item 3), and
 ``prefetch_mode`` is not honoured (batches are built in the training loop).
 """
 

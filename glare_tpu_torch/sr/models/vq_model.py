@@ -72,6 +72,18 @@ def _pretrain_path(path):
     return path if path and os.path.exists(path) else None
 
 
+def semantic_loss(vgg, net_g, src, z_q, weight):
+    """The semantic cluster loss: ``weight * mse(net_g.semantic_embed(z_q), f)``,
+    f = the VGG16 relu3_3 features of ``src`` (no gradient), resized (bilinear,
+    antialiased, as ``jax.image.resize``) to the embedding's size where they differ."""
+    with torch.no_grad():
+        feat = vgg(src)[-1]
+    sem = net_g.semantic_embed(z_q)
+    if feat.shape[-2:] != sem.shape[-2:]:
+        feat = F.interpolate(feat, size=sem.shape[-2:], mode="bilinear", align_corners=False, antialias=True)
+    return torch.mean((sem - feat.to(sem.dtype)) ** 2) * weight
+
+
 @MODEL_REGISTRY.register()
 class VQDehazeModel(BaseSRModel):
     def __init__(self, opt, device="cuda"):
@@ -168,13 +180,8 @@ class VQDehazeModel(BaseSRModel):
                     losses[key] = val
                     total = total + val
         if self.semantic_w > 0:
-            with torch.no_grad():
-                feat = self.semantic_vgg(lq if self.LQ_stage else gt)[-1]
-            sem = self.net_g.semantic_embed(z_q)
-            if feat.shape[-2:] != sem.shape[-2:]:
-                feat = F.interpolate(feat, size=sem.shape[-2:], mode="bilinear", align_corners=False,
-                                     antialias=True)
-            losses["l_semantic"] = torch.mean((sem - feat.to(sem.dtype)) ** 2) * self.semantic_w
+            losses["l_semantic"] = semantic_loss(self.semantic_vgg, self.net_g, lq if self.LQ_stage else gt,
+                                                 z_q, self.semantic_w)
             total = total + losses["l_semantic"]
         if self.use_dis and use_gan_now:
             self.net_d.requires_grad_(False)  # the g step moves the generator only

@@ -47,7 +47,11 @@ def test_sources_found():
             "glare_tpu_torch/sr/archs/discriminator_arch.py", "glare_tpu_torch/measure.py",
             "glare_tpu_torch/ops/warp.py", "glare_tpu_torch/utils/lpips.py",
             "glare_tpu_torch/utils/niqe.py", "glare_tpu_torch/utils/matlab_functions.py",
-            "glare_tpu_torch/sr/metrics_fid.py"} <= rel
+            "glare_tpu_torch/sr/metrics_fid.py", "glare_tpu_torch/sr/archs/arch_util.py",
+            "glare_tpu_torch/sr/archs/swinir_arch.py", "glare_tpu_torch/sr/data/haze_online_dataset.py",
+            "glare_tpu_torch/sr/utils/diffjpeg.py", "glare_tpu_torch/sr/utils/img_process_util.py",
+            "glare_tpu_torch/sr/utils/lmdb_util.py", "glare_tpu_torch/sr/utils/flow_util.py",
+            "glare_tpu_torch/sr/utils/face_util.py", "glare_tpu_torch/modules/legacy_archs.py"} <= rel
     # every kernel source and header the build compiles (python3 chip_smoke.py builds them all)
     from glare_tpu_torch.ops import _build
 
@@ -118,7 +122,11 @@ assert "glare_tpu" not in sys.modules
 assert {"glare_tpu_torch.sr.train", "glare_tpu_torch.sr.test", "glare_tpu_torch.sr.models.vq_model",
         "glare_tpu_torch.sr.archs.discriminator_arch", "glare_tpu_torch.sr.archs.swin",
         "glare_tpu_torch.sr.data.paired_image_dataset", "glare_tpu_torch.sr.utils.file_client",
-        "glare_tpu_torch.sr.metrics"} <= sr, sorted(sr)
+        "glare_tpu_torch.sr.metrics", "glare_tpu_torch.sr.archs.arch_util", "glare_tpu_torch.sr.archs.swinir_arch",
+        "glare_tpu_torch.sr.data.haze_online_dataset", "glare_tpu_torch.sr.utils.diffjpeg",
+        "glare_tpu_torch.sr.utils.img_process_util", "glare_tpu_torch.sr.utils.lmdb_util",
+        "glare_tpu_torch.sr.utils.flow_util", "glare_tpu_torch.sr.utils.face_util"} <= sr, sorted(sr)
+assert "glare_tpu_torch.modules.legacy_archs" in sys.modules
 # the evaluation metrics and the flow warp, without cv2 (their numpy / scipy / torch parts)
 for name in ("glare_tpu_torch.measure", "glare_tpu_torch.ops.warp", "glare_tpu_torch.utils.lpips",
              "glare_tpu_torch.utils.niqe", "glare_tpu_torch.utils.matlab_functions",
@@ -126,8 +134,9 @@ for name in ("glare_tpu_torch.measure", "glare_tpu_torch.ops.warp", "glare_tpu_t
     assert name in sys.modules, name
 from glare_tpu_torch.sr.registry import ARCH_REGISTRY, DATASET_REGISTRY, METRIC_REGISTRY, MODEL_REGISTRY
 assert {"calculate_psnr", "calculate_ssim", "calculate_niqe", "calculate_fid"} <= set(METRIC_REGISTRY.keys())
-assert {"VQWeightDehazeNet", "UNetDiscriminatorSN"} <= set(ARCH_REGISTRY.keys())
-assert "VQDehazeModel" in MODEL_REGISTRY and "SingleImageDataset" in DATASET_REGISTRY
+assert {"VQWeightDehazeNet", "UNetDiscriminatorSN", "SwinIR"} <= set(ARCH_REGISTRY.keys())
+assert "VQDehazeModel" in MODEL_REGISTRY
+assert {"SingleImageDataset", "HazeOnlineDataset"} <= set(DATASET_REGISTRY.keys())
 print("imported", n)
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -43,6 +43,8 @@ def _fill(path, shape, rng):
         return 0.5 * rng.standard_normal(shape)
     if name == "u":                               # spectral norm's power-iteration vector
         return rng.standard_normal(shape)
+    if name == "absolute_pos_embed":              # SwinIR's ape
+        return 0.1 * rng.standard_normal(shape)
     raise KeyError(f"no fill rule for parameter {'/'.join(path)} {shape}")
 
 
