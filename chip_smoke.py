@@ -49,7 +49,9 @@ Phases, each printing one JSON line:
              pairs: LPIPS from a seeded npz on the card against the CPU (and a
              float64 CPU run), PSNR / SSIM equal, the NaN column with its note
              without the npz, NIQE with parameters fitted in the phase, the
-             host ms of each metric, whether cv2 is importable (it is not used)
+             host ms of each metric, whether cv2 is importable (it is not used);
+             prep runs the C++ core of data/native.py, bit-equal to the numpy
+             plain version on both pairs and timed beside it
   hybrid_path  the same model with dcn_impl hybrid (the DCN cascade): a request
              that overflows the cascade's capacity goes through the CLI's
              re-dispatch loop, exact requests are held against an exact ('xla')
@@ -120,6 +122,27 @@ Phases, each printing one JSON line:
   legacy_path  RRDBNet (ESRGAN widths, get_steps) and ColorEncoder at 600x400,
              a 64x64 crop card against CPU; GumbelQuantize in eval and
              EMAVectorQuantizer with one update, card against CPU
+  tools_path  on main_path's model: tools/offset_histogram over two seeded
+             620x420 images (exactly two get_sr calls' launches, no plain
+             version; each warp's statistics on each image equal
+             audit_dcn_offsets'), tools/flops_audit of one image (its kernel
+             rows the formulas of PERF.md section 6) and the MFU of main_path's
+             ms per image against the 989 TFLOP/s data-sheet peak
+  dp_path    data parallelism (glare_tpu_torch/parallel) in spawned processes on
+             this card, train_path's model and a global batch of 2: (a) NCCL at
+             world size 1, a DDP step against the same step unwrapped (loss,
+             gradients within 1e-6 of each largest, the update), with the ms per
+             step of both in turns; (b) two ranks over gloo (NCCL refuses two
+             ranks on one device), one image each, against the single-process
+             step (loss 1e-5 relative, gradients 1e-3 of each largest), each
+             rank's launches exactly train_path's per step, no plain version;
+             (c) the stage-2 ActNorm init over the two ranks (one 160²
+             crop each) against one process on both crops: 1e-5 of each
+             tensor's largest with the networks in float64, 1e-4 (the float32
+             ActNorm bar of train_stage2_path) in float32; (d) one FSDP2
+             step (parallelize("fsdp")) at world size 1, held as (a) against
+             the unwrapped step on the same contiguous weights (FSDP2 shards
+             contiguous parameters only; cuDNN picks other algorithms for them)
 Every path is driven with the launch counts (attention and DCN: one per entry,
 see counters()) set to 0 just before and read just after; every attention launch
 of an inference path must land on the hopper entry, every DCN launch on the
@@ -156,6 +179,7 @@ from glare_tpu_torch.ops import _build  # noqa: E402
 from glare_tpu_torch.ops import attn as attn_ops  # noqa: E402
 from glare_tpu_torch.ops import dcn as dcn_ops  # noqa: E402
 from glare_tpu_torch.ops import vq as vq_ops  # noqa: E402
+from glare_tpu_torch.utils import profiling  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 
@@ -1666,7 +1690,7 @@ def phase_main_path():
           "index_flips": flips, "index_flip_worst_rel_gap": flip_rel_gap,
           "dcn_shapes": model.netG.deformable_decoder.last_dcn_shapes(),
           "max_memory_allocated": peak_mem})
-    return path_counts, model
+    return path_counts, model, calls
 
 
 def stages_vs_plain(model, model32, lq, aft_model=None, aft_model32=None):
@@ -2111,7 +2135,10 @@ def phase_eval_path(model=None):
 
     from scipy.ndimage import gaussian_filter
 
+    from glare_tpu_torch.cli import infer_paired
     from glare_tpu_torch.cli.infer_paired import enhance_exact, format_measurements, measure_output, prep
+    from glare_tpu_torch.data import native
+    from glare_tpu_torch.utils.imgproc import preprocess_padded as plain_preprocess
     from glare_tpu_torch.measure import Measure
     from glare_tpu_torch.measure import t as lpips_input
     from glare_tpu_torch.models import create_model
@@ -2126,6 +2153,11 @@ def phase_eval_path(model=None):
         model = create_model(lol_opt(), device="cuda")
         temper_offset_heads(model.netG, seed=7, std=0.02)
     opt = lol_opt()
+    require(infer_paired.preprocess_padded is native.preprocess_padded, "the CLI's prep must run data.native")
+    t0 = time.perf_counter()
+    native.load()   # g++ at first use; a failed build raises here
+    native_build_s = time.perf_counter() - t0
+    require(opt["datasets"]["train"]["log_low"], "the protocol's prep takes the log")
     pairs = [synthetic_pair(60 + i) for i in range(2)]
     saved = os.environ.get("GLARE_LPIPS_NPZ")
     with tempfile.TemporaryDirectory() as tmp:
@@ -2144,6 +2176,11 @@ def phase_eval_path(model=None):
             for i, (lr, hr) in enumerate(pairs):
                 t = {}
                 (lr_t, h), t["prep"] = sync_ms(lambda: prep(lr, opt))
+                # prep runs the C++ core; the numpy plain version on the same bytes, bit for bit
+                plain_t, t["prep_numpy"] = sync_ms(lambda: plain_preprocess(lr, bottom=20, left=20, apply_log=True))
+                require(lr_t.dtype == plain_t.dtype == np.float32 and lr_t.shape == plain_t.shape
+                        and np.array_equal(lr_t.view(np.int32), plain_t.view(np.int32)),
+                        f"pair {i}: native prep is not bit-equal to the numpy version")
                 sr, t["get_sr"] = sync_ms(
                     lambda: enhance_exact(model, lr_t[None], tag=f"pair {i}")[0][0].cpu().numpy())
                 (out, meas), t["metrics_card"] = sync_ms(lambda: measure_output(sr, h, hr, m_card))
@@ -2189,6 +2226,8 @@ def phase_eval_path(model=None):
         require(math.isfinite(rec["NIQE"]), f"NIQE {rec['NIQE']}")
     emit({"phase": "eval_path", "pairs": "2 synthetic 600x400 (uint8), the main-path model",
           "cv2_importable": importlib.util.find_spec("cv2") is not None,
+          "prep": "data.native (C++, g++ -O3), bit-equal to utils.imgproc.preprocess_padded (numpy)",
+          "native_build_s": native_build_s,
           "lpips_tol": f"card vs cpu <= {LPIPS_REL_TOL} relative, TF32 off", "without_npz": note,
           "per_image": per_image, "niqe_fit_ms": fit_ms, "launches": moved})
 
@@ -3975,23 +4014,378 @@ def phase_legacy_path():
     return moved
 
 
-def _category(name):
-    n = name.lower()
-    for key, cat in (("attn_hopper_kernel", "attention (this repo)"),
-                     ("attn_bf16_kernel", "attention (this repo)"), ("attn_f32_kernel", "attention (this repo)"),
-                     ("dcn_hopper_kernel", "dcn (this repo)"), ("cascade_select_kernel", "dcn (this repo)"),
-                     ("dcn_bf16_kernel", "dcn (this repo)"), ("dcn_f32_kernel", "dcn (this repo)"),
-                     ("dcn_f32_tiled_kernel", "dcn (this repo)"), ("pass_kernel", "dcn backward (this repo)"),
-                     ("vq_argmin", "vq_argmin (this repo)"),
-                     ("groupnorm", "group norm"), ("group_norm", "group norm"), ("rowwisemoments", "group norm"),
-                     ("cudnn", "conv / gemm (library)"), ("conv", "conv / gemm (library)"),
-                     ("gemm", "conv / gemm (library)"), ("cutlass", "conv / gemm (library)"),
-                     ("xmma", "conv / gemm (library)"), ("nchw", "layout copies"), ("nhwc", "layout copies"),
-                     ("elementwise", "elementwise / casts"), ("copy", "elementwise / casts"),
-                     ("reduce", "reductions"), ("gather", "gather / index"), ("index", "gather / index")):
-        if key in n:
-            return cat
-    return "other"
+# ------------------------------------------------------------------ dp_path --
+# Stage-3 training at train_path's configuration in spawned processes on this card:
+# (a) NCCL at world size 1, a DDP-wrapped step against the same step unwrapped;
+# (b) two ranks over gloo (NCCL refuses two ranks on one device; gloo's DDP takes
+#     CUDA tensors), one image each, against the single-process step on the whole batch;
+# (c) the stage-2 ActNorm init over the two ranks against one process on both crops;
+# (d) one FSDP2 step (parallelize("fsdp")) at world size 1 against the unwrapped one.
+
+DP_SAME_TOL = 1e-6      # (a), (d): of each tensor's largest ("expected bit-equal")
+DP_ACTNORM_TOL = 1e-5   # (c), float64: of each tensor's largest (float32: ACTNORM_TOL)
+DP_TIMED = 3            # (a): steps timed each way, in turns
+DP_UPDATES = 10         # the schedule's count at each compared step: past the warm-up, lr 5e-5
+
+
+def _flat(named):
+    """{name: tensor} -> (names, shapes, one flat float32 numpy array): one transfer
+    between processes, by value (a rank exits after sending)."""
+    names = list(named)
+    return names, [tuple(named[n].shape) for n in names], \
+        torch.cat([named[n].detach().float().reshape(-1).cpu() for n in names]).numpy()
+
+
+def _unflat(packed):
+    names, shapes, flat = packed
+    flat = torch.from_numpy(flat)
+    out, off = {}, 0
+    for n, s in zip(names, shapes):
+        k = math.prod(s)
+        out[n] = flat[off:off + k].reshape(s)
+        off += k
+    return out
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _dp_state(model):
+    """(loss log, gradients, parameters) of the trainable tensors after a step, on the CPU."""
+    named = model.trainable_parameters()
+    return (dict(model.get_current_log()), _flat({n: _full(p.grad) for n, p in named}),
+            _flat({n: _full(p) for n, p in named}))
+
+
+def _dp_restore(model, params0):
+    """The trainable weights back to ``params0``, a fresh optimizer at DP_UPDATES
+    updates, no wrapper."""
+    model.dp = None
+    with torch.no_grad():
+        for n, p in model.trainable_parameters():
+            p.copy_(params0[n].to(p.device))
+    model._build_optimizer(model.opt.get("train") or {})
+    model.updates = DP_UPDATES
+
+
+def _dp_params(got_p, want_p, want_g, what):
+    """The parameters after the step, against the reference step's. Adam's first
+    update moves an element by lr * g / (|g| + eps), about lr either way, so where
+    the reference gradient is rounding noise a sign may differ (2 lr apart); where
+    it is at least 1e-2 of its tensor's largest (and the tensor's gradient does not
+    vanish: above STEP_VANISH of the step's largest), the two updates must agree
+    within 1e-3 lr. -> the largest distances."""
+    lr = train_opt()["train"]["lr_G"]
+    top = max(float(g.abs().max()) for g in want_g.values())
+    worst_live, worst_all = 0.0, 0.0
+    for n, w in want_p.items():
+        d, g = (got_p[n] - w).abs(), want_g[n].abs()
+        live = (g >= 1e-2 * g.max()) & (g.max() > STEP_VANISH * top)
+        worst_all = max(worst_all, float(d.max()))
+        if bool(live.any()):
+            worst_live = max(worst_live, float(d[live].max()))
+    require(worst_all <= 2.001 * lr and worst_live <= 1e-3 * lr,
+            f"{what}: parameters {worst_all} (all), {worst_live} (live gradient) at lr {lr}")
+    return {"max_abs_diff": worst_all, "max_abs_diff_live": worst_live, "lr": lr}
+
+
+def _dp_same(got, want, what):
+    """(a), (d): the loss and every gradient within DP_SAME_TOL of each tensor's
+    largest of the reference step's (a tensor below STEP_VANISH of the step's
+    largest gradient, such as an attention key bias's, vanishes in exact arithmetic
+    and must vanish on both), the parameters by _dp_params."""
+    g_log, g_grads, g_params = got
+    w_log, w_grads, w_params = want
+    g, w = _unflat(g_grads), _unflat(w_grads)
+    top = max(float(t.abs().max()) for t in w.values())
+    grads = _worst(_dists(g, w, top, f"{what}: gradient"))
+    require(grads["worst"] <= DP_SAME_TOL, f"{what}: gradient {grads['worst_tensor']} {grads['worst']}")
+    loss = max(abs(g_log[k] - v) / max(abs(v), 1e-30) for k, v in w_log.items())
+    require(loss <= DP_SAME_TOL, f"{what}: losses {g_log} against {w_log}")
+    gp, wp = _unflat(g_params), _unflat(w_params)
+    return {"loss_rel": loss, "grads": grads,
+            "grads_bit_equal": all(torch.equal(g[n], w[n]) for n in w),
+            "params": _dp_params(gp, wp, w, what), "params_bit_equal": all(torch.equal(gp[n], wp[n]) for n in wp)}
+
+
+def _dp_group_a():
+    """World size 1, NCCL: the reference steps, (a), (d), and the single-process
+    ActNorm init of (c)."""
+    from glare_tpu_torch.models import create_model
+    from glare_tpu_torch.parallel.mesh import contiguous_parameters_
+
+    model, build_s = _train_model(False)
+    batch = train_batch(310)
+    spread = condition_offset_heads(model, batch)
+    params0 = {n: p.detach().clone() for n, p in model.trainable_parameters()}
+    model.updates = DP_UPDATES
+    model.optimize_parameters(batch)
+    ref = _dp_state(model)
+    _dp_restore(model, params0)
+    model.parallelize("ddp")
+    model.optimize_parameters(batch)
+    a = _dp_same(_dp_state(model), ref, "(a) DDP(1) against the unwrapped step")
+    ddp = model.dp
+    times = {"unwrapped": [], "ddp1": []}
+    for _ in range(DP_TIMED):
+        for key, wrapper in (("unwrapped", None), ("ddp1", ddp)):
+            model.dp = wrapper
+            times[key].append(sync_ms(lambda: model.optimize_parameters(batch))[1])
+    # (d): FSDP2 takes contiguous parameters, and cuDNN picks other algorithms for
+    # them than for channels_last ones: the unwrapped step on contiguous weights is
+    # its reference; the channels_last one is reported beside it
+    _dp_restore(model, params0)
+    contiguous_parameters_(model.netG)
+    model.optimize_parameters(batch)
+    ref_d = _dp_state(model)
+    _dp_restore(model, params0)
+    model.parallelize("fsdp")
+    model.updates = DP_UPDATES
+    model.optimize_parameters(batch)
+    got_d = _dp_state(model)
+    d = _dp_same(got_d, ref_d, "(d) FSDP2 at world size 1 against the unwrapped step (contiguous weights)")
+    g_d, g_ref = _unflat(got_d[1]), _unflat(ref[1])
+    top = max(float(t.abs().max()) for t in g_ref.values())
+    d["grads_vs_channels_last_step"] = max(float((g_d[n] - w).abs().max() / w.abs().max())
+                                           for n, w in g_ref.items() if float(w.abs().max()) > STEP_VANISH * top)
+    d["specs_sharded"] = sum(1 for s in model.fsdp_specs.values() if any(s))
+    del model
+    torch.cuda.empty_cache()
+    actnorm = _dp_actnorm_inits(create_model(train2_opt(), device="cuda"))
+    return {"ref": ref, "params0": _flat(params0), "build_s": build_s, "spread": spread, "a": a, "d": d,
+            "ms": times, "actnorm": actnorm, "peak": torch.cuda.max_memory_allocated()}
+
+
+def _dp_group_b(params0):
+    """Two ranks over gloo on this card: (b) one step of the model's own DP switch
+    (DDP over gloo with CUDA tensors) on the global batch, each rank its image,
+    launch counts, no plain version, then a second step timed; (c) the stage-2
+    ActNorm init on one crop a rank."""
+    from glare_tpu_torch.models import create_model
+
+    model, _ = _train_model(False)
+    require(model.dp is not None, "(b): a group of two ranks did not switch the model to DDP")
+    with torch.no_grad():
+        own = dict(model.trainable_parameters())
+        for n, p in _unflat(params0).items():
+            own[n].copy_(p.to(DEV))
+    model.updates = DP_UPDATES
+    batch = train_batch(310)
+    per_step = {**{k: 0 for k in counters()}, "vq_argmin": 1, "dcn_fwd_f32": 2, "dcn_bwd": 2}
+    bwd_per_step = {**{k: 0 for k in dcn_ops.bwd_launches_by_entry}, "pass": 2}
+    with counted_plain_versions() as plain_calls:
+        before, by_entry = counters(), dict(dcn_ops.bwd_launches_by_entry)
+        _, ms = sync_ms(lambda: model.optimize_parameters(batch))
+        moved, moved_e = moved_since(before), bwd_moved_since(by_entry)
+        plain = plain_calls[0]
+    state = _dp_state(model)
+    _, ms_next = sync_ms(lambda: model.optimize_parameters(batch))   # the first step paid the warm-up
+    del model
+    torch.cuda.empty_cache()
+    m2 = create_model(train2_opt(), device="cuda")
+    ddp_stage2 = m2.dp is not None
+    actnorm = _dp_actnorm_inits(m2)
+    return {"state": state, "route": "ddp (gloo, CUDA tensors)", "ms": ms, "ms_second_step": ms_next,
+            "launches": moved, "expected": per_step, "bwd": moved_e, "bwd_expected": bwd_per_step,
+            "plain_calls": plain, "actnorm": actnorm, "ddp_stage2": ddp_stage2,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def _dp_actnorm_inits(m2):
+    """(c): the stage-2 ActNorm init on the two crops (under two ranks each takes
+    its own), in float32 and again with the networks widened to float64 (where the
+    batch layout's rounding, one crop a call against two, is out of the way and
+    only the statistics' arithmetic is left). -> {dtype: flattened bias / logs}."""
+    crops = train_batch(410, 2, S2_CROP)
+    out = {}
+    for dtype in ("float32", "float64"):
+        if dtype == "float64":
+            m2.netG.double()
+            m2.net_hq.double()
+            m2._actnorm_inited = False
+        m2.initialize_actnorm(crops)
+        out[dtype] = _flat({n: t for n, t in m2.netG.state_dict().items() if ".actnorm." in n})
+    return out
+
+
+DP_JOBS = {"a": _dp_group_a, "b": _dp_group_b}
+
+
+def _dp_rank_main(rank, world, port, backend, job, args, queue):
+    """One spawned rank: join the group, run ``DP_JOBS[job](*args)``, send the result."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from glare_tpu_torch.parallel import init_distributed
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    out = {}
+    try:
+        init_distributed("cuda", backend=backend, timeout_s=300)
+        out = DP_JOBS[job](*args)
+    except Exception:
+        out = {"error": traceback.format_exc()}
+    queue.put((rank, out))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _dp_spawn(world, backend, job, args=()):
+    """``DP_JOBS[job]`` in ``world`` spawned ranks on this card -> the per-rank results."""
+    import queue as queue_mod
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = mp.start_processes(_dp_rank_main, args=(world, port, backend, job, args, q), nprocs=world,
+                               join=False, start_method="spawn")
+    out, deadline = [None] * world, time.time() + 600
+    while any(r is None for r in out):
+        try:
+            r, res = q.get(timeout=5)
+            out[r] = res
+        except queue_mod.Empty:
+            require(time.time() < deadline, f"dp_path {job}: ranks did not answer in 600 s")
+            require(all(p.is_alive() or p.exitcode == 0 for p in procs.processes),
+                    f"dp_path {job}: a rank died: {[p.exitcode for p in procs.processes]}")
+    procs.join()
+    for r, res in enumerate(out):
+        require("error" not in res, f"dp_path {job} rank {r}:\n{res.get('error')}")
+    return out
+
+
+def phase_dp_path(card):
+    """Data parallelism on the card (parallel/, the models' DP switch): see the
+    comment above DP_SAME_TOL."""
+    from glare_tpu_torch.parallel import EnlargedSampler  # noqa: F401  (the package imports on the card)
+
+    t0 = time.time()
+    (a,) = _dp_spawn(1, "nccl", "a")
+    t_a = time.time() - t0
+    b = _dp_spawn(2, "gloo", "b", (a["params0"],))
+    t_b = time.time() - t0 - t_a
+    # (b): each rank against the single-process step on the whole batch, train_path's bars
+    ref_log, ref_grads, ref_params = a["ref"]
+    want_g, want_p = _unflat(ref_grads), _unflat(ref_params)
+    top = max(float(g.abs().max()) for g in want_g.values())
+    ranks = []
+    for r, res in enumerate(b):
+        log, grads, params = res["state"]
+        loss_rel = abs(log["total_loss"] - ref_log["total_loss"]) / abs(ref_log["total_loss"])
+        g = _worst(_dists(_unflat(grads), want_g, top, f"(b) rank {r} gradient"))
+        p_err = _dp_params(_unflat(params), want_p, want_g, f"(b) rank {r}")
+        require(loss_rel <= STEP_LOSS_TOL, f"(b) rank {r}: loss {log['total_loss']} against {ref_log['total_loss']}")
+        require(g["worst"] <= STEP_GRAD_TOL, f"(b) rank {r}: gradient {g['worst_tensor']} {g['worst']}")
+        require(res["launches"] == res["expected"], f"(b) rank {r}: launches {res['launches']} != {res['expected']}")
+        require(res["bwd"] == res["bwd_expected"], f"(b) rank {r}: backward kernels {res['bwd']}")
+        require(res["plain_calls"] == 0, f"(b) rank {r}: {res['plain_calls']} plain-version calls")
+        ranks.append({"rank": r, "route": res["route"], "ms_step": res["ms"], "ms_second_step": res["ms_second_step"],
+                      "loss": log["total_loss"],
+                      "loss_rel": loss_rel, "grads": g, "params": p_err,
+                      "launches": res["launches"], "dcn_bwd_kernels": res["bwd"], "plain_calls": res["plain_calls"],
+                      "max_memory_allocated": res["peak"]})
+    p0, p1 = _unflat(b[0]["state"][2]), _unflat(b[1]["state"][2])
+    require(all(torch.equal(p0[n], p1[n]) for n in p0), "(b) the two ranks hold different weights")
+    # (c): the ActNorm init over the ranks against one process on both crops: in
+    # float64 within DP_ACTNORM_TOL (the statistics over the ranks are the whole
+    # batch's); in float32 within ACTNORM_TOL, train_stage2_path's card bar for
+    # float32 rounding through this flow (the two layouts round differently)
+    worst_c = {}
+    for dtype, tol in (("float64", DP_ACTNORM_TOL), ("float32", ACTNORM_TOL)):
+        want = _unflat(a["actnorm"][dtype])
+        for r, res in enumerate(b):
+            got = _unflat(res["actnorm"][dtype])
+            for kind in ("bias", "logs"):
+                names = [n for n in want if n.endswith(kind)]
+                w = _worst(_dists(got, {n: want[n] for n in names}, max(float(want[n].abs().max()) for n in names),
+                                  f"(c) rank {r} {dtype} ActNorm"))
+                worst_c[f"{dtype}_{kind}"] = w
+                require(w["worst"] <= tol, f"(c) rank {r} {dtype}: {w['worst_tensor']} {w['worst']} > {tol}")
+    ms_u, ms_d = statistics.median(a["ms"]["unwrapped"]), statistics.median(a["ms"]["ddp1"])
+    emit({"phase": "dp_path", "config": "confs/train_stage3_LOL.yml widths, float32, chain R=2, 256 crop, "
+                                        "global batch 2, seeded weights (train_path's)",
+          "card": card, "a_ddp_world1_nccl": a["a"], "d_fsdp_world1_nccl": a["d"],
+          "ms_per_step": {"unwrapped": a["ms"]["unwrapped"], "ddp1": a["ms"]["ddp1"], "median_unwrapped": ms_u,
+                          "median_ddp1": ms_d, "ddp1_overhead_ms": ms_d - ms_u},
+          "b_two_ranks_gloo": ranks, "c_actnorm_two_ranks": {"worst": worst_c, "stage2_ddp": b[0]["ddp_stage2"],
+                                                             "tol": {"float64": DP_ACTNORM_TOL,
+                                                                     "float32": ACTNORM_TOL}},
+          "seconds": {"group_a_world1": t_a, "group_b_world2": t_b},
+          "launches_b_rank0_step": b[0]["launches"],
+          "max_memory_allocated_a": a["peak"], "model_build_s": a["build_s"], "offset_spread": a["spread"],
+          "tol": f"(a), (d) {DP_SAME_TOL} of each tensor's largest; (b) loss {STEP_LOSS_TOL} relative, each gradient "
+                 f"{STEP_GRAD_TOL} of its largest; (c) {DP_ACTNORM_TOL} of each tensor's largest in float64, "
+                 f"{ACTNORM_TOL} in float32"})
+    return b[0]["launches"]   # one rank's step (this process launches nothing here)
+
+
+# ------------------------------------------------------------------ tools_path --
+
+def phase_tools_path(model, main_calls, card):
+    """The model-driving tools on main_path's model (bf16, pallas, 620x420):
+    offset_histogram over two seeded images (exactly two get_sr calls' launches; its
+    per-warp statistics equal audit_dcn_offsets' on each image), flops_audit of one
+    image with the MFU of main_path's measured ms per image."""
+    from glare_tpu_torch.tools import flops_audit, offset_histogram
+
+    expected = {**{k: 0 for k in counters()}, "vq_argmin": 2, "attn_hopper": 22, "dcn_hopper": 4}
+    imgs = [dev(seeded_image(s)) for s in (200, 201)]
+    reset_counters()
+    with counted_plain_versions() as plain_calls:
+        t0 = time.perf_counter()
+        collected = [offset_histogram.collect_offsets(model, lq) for lq in imgs]
+        torch.cuda.synchronize()
+        hist_ms = (time.perf_counter() - t0) * 1e3
+    launches = counters()
+    require(launches == expected, f"offset_histogram launched {launches} != two get_sr calls' {expected}")
+    require(plain_calls[0] == 0, f"offset_histogram ran {plain_calls[0]} plain versions")
+    lines = offset_histogram.summarize(collected)
+    names = sorted(collected[0], key=lambda n: [m for m, _ in model.netG.named_modules()].index(n))
+    checked = 0
+    for k, lq in enumerate(imgs):
+        audit = model.audit_dcn_offsets(lq, radii=(1, 2, 4, 8))
+        for w, name in enumerate(names):
+            st, au = offset_histogram.offset_stats([collected[k][name]]), audit["warps"][f"warp_{w}"]
+            pairs = [(st["max"], round(au["tap_max"], 4)), (st["p99"], round(au["tap_p99"], 4)),
+                     (st["per_gk_max"], [[round(v, 4) for v in row] for row in au["per_gk_max"]])]
+            for r in (1, 2, 4, 8):
+                pairs += [(st["frac_exceed"][str(r)], round(au["tap_frac_exceed"][r], 6)),
+                          (st["pix_frac_exceed"][str(r)], round(au["pix_frac_exceed"][r], 6))]
+                pairs += [(st["rowblk_frac_exceed_by_rpb"][str(rpb)][str(r)],
+                           round(au["rowblk_frac_exceed_by_rpb"][rpb][r], 6)) for rpb in (8, 16)]
+            for got, want in pairs:
+                require(got == want, f"offset_histogram {name} image {k}: {got} != audit {want}")
+            checked += len(pairs)
+    t0 = time.perf_counter()
+    fl = flops_audit.stage3_flops(model, dev(seeded_image(5)))
+    audit_s = time.perf_counter() - t0
+    kern = {}
+    for part in ("latent_half", "vq_decode", "aft_half"):
+        for kind, v in fl[part]["kernels"].items():
+            kern[kind] = kern.get(kind, 0) + v
+    want_kern = {"attention": 11 * 4 * N_TOK ** 2 * 512, "vq_argmin": 2 * N_TOK * 8192 * 4,
+                 "dcn": 2 * (H_IN * W_IN * 9 * 128 * 128 + (H_IN // 2) * (W_IN // 2) * 9 * 256 * 256)}
+    require(kern == want_kern, f"flops_audit kernel rows {kern} != the formulas {want_kern}")
+    ms_img = min(c["ms_per_image"] for c in main_calls if c["batch"] == 1)
+    ceil = flops_audit.ceiling(fl["total"], flops_audit.PEAK_BF16)
+    emit({"phase": "tools_path", "card": card,
+          "offset_histogram": {"lines": lines, "launches": launches, "host_ms_two_images": hist_ms,
+                               "fields_equal_to_audit_dcn_offsets": checked},
+          "flops_audit": {"tflop_per_img": fl["total"] / 1e12,
+                          "parts_tflop": {p: fl[p]["total"] / 1e12 for p in ("latent_half", "vq_decode", "aft_half")},
+                          "kernel_tflop": {k: v / 1e12 for k, v in kern.items()},
+                          "peak_tflops_datasheet": flops_audit.PEAK_BF16 / 1e12,
+                          "ceiling_img_s_100mfu": ceil, "main_path_ms_per_image": ms_img,
+                          "mfu": (1e3 / ms_img) / ceil, "host_s": audit_s}})
+    return launches
 
 
 @contextlib.contextmanager
@@ -4017,27 +4411,15 @@ def phase_profile(fn, what):
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     _, untraced_ms = sync_ms(fn)
-    cats, names, n_kernels = {}, {}, 0
-    for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA") or getattr(ev, "is_device", False):
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = getattr(ev, "self_cuda_time_total", 0.0)
-            if us <= 0:
-                continue
-            n_kernels += ev.count
-            c = _category(ev.key)
-            cats[c] = cats.get(c, 0.0) + us / 1e3
-            names[ev.key[:90]] = names.get(ev.key[:90], 0.0) + us / 1e3
-    busy = sum(cats.values())
+    agg = profiling.aggregate(prof)
+    busy = agg["device_busy_ms"]
     require(busy > 0, "torch.profiler recorded no device time")
-    top = sorted(names.items(), key=lambda kv: -kv[1])[:12]
     emit({"phase": "profile", "what": what, "traced_wall_ms": wall_ms,
           "untraced_wall_ms": untraced_ms, "device_busy_ms": busy,
           "device_idle_share_of_untraced": max(0.0, 1.0 - busy / untraced_ms),
-          "kernel_launches": n_kernels,
-          "device_ms_by_category": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
-          "top_kernels_ms": top})
+          "kernel_launches": agg["kernel_launches"],
+          "device_ms_by_category": agg["device_ms_by_category"],
+          "top_kernels_ms": agg["top_kernels_ms"]})
 
 
 # the path whose count a kernel's "launches" reports (and on which it must have
@@ -4051,7 +4433,7 @@ PATHS = {"vq_argmin": "main_path", "attn_hopper": "main_path", "attn_wmma": None
 COUNTER_OF = {"dcn_hopper_train": "dcn_hopper"}
 ALL_PHASES = ("device,build,kernels,main_path,eval_path,hybrid_path,gather_path,flow_path,stage2_path,"
               "train_path,train_path_bf16,train_stage2_path,train_stage1_path,train_stage1_lq_path,"
-              "haze_lq_path,swinir_path,degradation_path,legacy_path")
+              "haze_lq_path,swinir_path,degradation_path,legacy_path,tools_path,dp_path")
 
 
 def main():
@@ -4072,12 +4454,15 @@ def main():
     kernels = phase_kernels() if "kernels" in phases else None
     counts, model, gather_tail = {}, None, None
     if "main_path" in phases:
-        counts["main_path"], model = phase_main_path()
+        counts["main_path"], model, main_calls = phase_main_path()
         if args.profile:
             lq = dev(seeded_image(5))
             phase_profile(lambda: model.get_sr(lq), "one get_sr, batch 1, 620x420, bf16")
     if "eval_path" in phases:
         phase_eval_path(model)
+    if "tools_path" in phases:
+        require(model is not None, "tools_path runs on main_path's model: add main_path to --phases")
+        counts["tools_path"] = phase_tools_path(model, main_calls, card)
     del model
     torch.cuda.empty_cache()
     if "hybrid_path" in phases:
@@ -4151,6 +4536,8 @@ def main():
     if "legacy_path" in phases:
         counts["legacy_path"] = phase_legacy_path()
         torch.cuda.empty_cache()
+    if "dp_path" in phases:
+        counts["dp_path"] = phase_dp_path(card)
     if any(ph not in phases for ph in ALL_PHASES.split(",")):
         emit({"partial": True, "phases": phases, "seconds": round(time.time() - t_start, 1)})
         return

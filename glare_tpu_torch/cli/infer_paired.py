@@ -3,7 +3,8 @@
     python -m glare_tpu_torch.cli.infer_paired --opt confs/LOL.yml [--batch N] [--device cpu]
 
 Counterpart of ``glare_tpu/cli/infer_paired.py``, same per-image protocol:
-reflect pad (bottom 20, left 20), /255 + log transform, stage-3 forward, crop
+reflect pad (bottom 20, left 20), /255 + log transform (the C++ core of
+``data/native.py``), stage-3 forward, crop
 back, gray-mean brightness adjust, PSNR/SSIM/LPIPS, per-image CSV + metrics.txt.
 Runs on ``cuda`` unless ``--device cpu`` is given; with no GPU and no explicit
 ``--device cpu`` it raises.
@@ -37,7 +38,8 @@ import numpy as np
 from ..measure import Measure
 from ..models import create_model
 from ..options import dict_to_nonedict, parse
-from ..utils.imgproc import hiseq_color_cv2_img, impad, imread, imwrite, preprocess_padded
+from ..data.native import preprocess_padded
+from ..utils.imgproc import hiseq_color_cv2_img, impad, imread, imwrite
 from ..utils.metrics import PSNR, calculate_ssim, gray_mean_adjust, img_as_ubyte
 from ..utils.util import natsorted, opt_get
 
@@ -126,7 +128,9 @@ def enhance_exact(model, lr_b, tag=""):
 
 def prep(lr, opt):
     """uint8 HWC RGB low-light image -> the model's input: reflect pad (bottom 20,
-    left 20), /255, the log transform when ``datasets.train.log_low``; the
+    left 20), /255, the log transform when ``datasets.train.log_low``, fused in the
+    C++ core (``data.native``, as the JAX CLI; bit-equal to the numpy plain
+    version ``utils.imgproc.preprocess_padded``; a failed build raises); the
     histogram-equalised image instead of it (``histeq_as_input``) or beside it
     (``concat_histeq``) when the conf asks. -> (float32 [H+20, W+20, C], H)."""
     apply_log = bool(opt_get(opt, ["datasets", "train", "log_low"], False))

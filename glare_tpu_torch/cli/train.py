@@ -16,6 +16,16 @@ training states. Artifacts: ``{iter}_G.pth`` under ``models/`` (a ``state_dict``
 the inference CLIs and ``cli/test_stages.py`` load) and ``{iter}.state`` under
 ``training_state/``. ``--stage`` picks the default conf and the validation; the
 conf's ``model`` must be that stage's (stage 2 ``LLFlow``, stage 3 ``VQLLFLOWD``).
+
+Data parallelism: under ``torchrun`` (``WORLD_SIZE`` in the environment),
+
+    torchrun --nproc_per_node=N -m glare_tpu_torch.cli.train --stage 3 [--opt CONF]
+
+each process joins the group (``parallel.init_distributed``: NCCL on the card,
+gloo with ``--device cpu``) on its own card, loads the same global batch (the same
+seed, the same order) and trains on its block of it; the model averages the
+gradients. Rank 0 alone logs, validates and writes the experiment tree and the
+checkpoints. Without ``torchrun`` nothing changes.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from ..data import create_dataloader, create_dataset
 from ..models import create_model
 from ..models.base_model import resolve_device
 from ..options import dict2str, dict_to_nonedict, parse
+from ..parallel.mesh import init_distributed, local_device
 from ..utils import Timer, TickTock, mkdir_and_rename, mkdirs, set_random_seed, setup_logger
 from ..utils.metrics import PSNR, gray_mean_adjust
 from ..utils.util import get_resume_paths, opt_get
@@ -59,6 +70,10 @@ def main(stage=3, argv=None):
             f"--stage {args.stage}: this CLI trains stages 2 and 3; stage 1 (the codebook "
             "framework) trains with `python -m glare_tpu_torch.sr.train -opt CONF`")
     device = resolve_device(args.device)
+    main_rank = True   # rank 0 alone writes the tree, logs, validates and saves
+    if "WORLD_SIZE" in os.environ:
+        main_rank = init_distributed(device)[0] == 0
+        device = local_device(device)
     opt = parse(args.opt or f"./confs/train_stage{args.stage}_LOL.yml", is_train=True)
     if opt["model"] != STAGE_MODEL[args.stage]:
         raise ValueError(f"--stage {args.stage} trains model {STAGE_MODEL[args.stage]!r}; the conf "
@@ -70,14 +85,18 @@ def main(stage=3, argv=None):
     opt = dict_to_nonedict(opt)
 
     resume_state_path = get_resume_state(opt)
-    if resume_state_path is None:
+    if resume_state_path is None and main_rank:
         mkdir_and_rename(opt["path"]["experiments_root"])
         mkdirs(path for key, path in opt["path"].items()
                if isinstance(path, str) and key not in ("experiments_root", "root")
                and "pretrain" not in key and "resume" not in key and "strict" not in key)
+    if "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
 
-    setup_logger("base", opt["path"]["log"], "train_" + opt["name"], level=logging.INFO,
-                 screen=True, tofile=True)
+        dist.barrier()
+
+    setup_logger("base", opt["path"]["log"], "train_" + opt["name"],
+                 level=logging.INFO if main_rank else logging.WARNING, screen=True, tofile=main_rank)
     logger = logging.getLogger("base")
     logger.info(dict2str(opt))
 
@@ -145,12 +164,12 @@ def main(stage=3, argv=None):
             dens = ((current_step > 50000 and current_step % 50 == 0)
                     or (current_step > 40000 and current_step % 100 == 0)
                     or (current_step > 30000 and current_step % 200 == 0))
-            if current_step % save_freq == 0 or dens:
+            if (current_step % save_freq == 0 or dens) and main_rank:
                 logger.info("Saving models and training states.")
                 model.save(current_step)
                 model.save_training(epoch, current_step)
 
-            if current_step % val_freq == 0:
+            if current_step % val_freq == 0 and main_rank:
                 psnr = validate(model, val_loader, current_step, logger, stage=args.stage)
                 if psnr > best_psnr:
                     best_psnr = psnr
@@ -160,8 +179,9 @@ def main(stage=3, argv=None):
     # the loop leaves current_step one past the last update; the JAX loop labels
     # its final save with that count, the port with the updates made
     current_step = min(current_step, total_iters)
-    model.save(current_step)
-    model.save_training(epoch, current_step)
+    if main_rank:
+        model.save(current_step)
+        model.save_training(epoch, current_step)
     logger.info("End of training. Total time: %.1fs", time.time() - t_start)
     return model, current_step
 

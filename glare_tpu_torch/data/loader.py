@@ -12,25 +12,32 @@ import numpy as np
 
 
 class DataLoader:
-    def __init__(self, dataset, batch_size=1, shuffle=False, drop_last=False, seed=0):
+    """``sampler``: an object with ``indices()`` (``parallel.EnlargedSampler``) whose
+    order replaces the loader's own shuffle: a data-parallel rank's share."""
+
+    def __init__(self, dataset, batch_size=1, shuffle=False, drop_last=False, seed=0, sampler=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.sampler = sampler
         self.rng = np.random.default_rng(seed)
         self.epoch = 0
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.dataset) if self.sampler is None else len(self.sampler)
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
-        n = len(self.dataset)
-        order = np.arange(n)
-        if self.shuffle:
-            self.rng.shuffle(order)
+        if self.sampler is not None:
+            order = np.asarray(self.sampler.indices())
+        else:
+            order = np.arange(len(self.dataset))
+            if self.shuffle:
+                self.rng.shuffle(order)
+        n = len(order)
         self.epoch += 1
         for start in range(0, n, self.batch_size):
             idx = order[start:start + self.batch_size]

@@ -21,17 +21,27 @@ decay 1e-5, the flow with ``weight_decay_G``; AdamW's decoupled decay is optax's
 its k-th update. ``initialize_actnorm`` runs the ActNorm data-dependent init
 once, on the first batch, before the first step; ``load_network`` and
 ``resume_training`` mark it done.
+
+Data parallelism (the JAX model's mesh switch): when a ``torch.distributed`` group
+of more than one rank is up and ``opt["use_dp"]`` is not false, every rank is
+handed the same global batch and trains on its block (``shard_batch``; the whole
+batch when it does not divide), the flow runs under ``DistributedDataParallel``,
+and the ActNorm init takes its statistics over the whole batch (all-reduced sums,
+as JAX's SPMD init sees the global batch), not over the rank's block.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 
 import torch
 
+from ..modules.flow_layers import ActNorm2d
 from ..modules.llflow_vqgan2 import LLFlowVQGAN2
 from ..nn.layers import cast_convs_, seed_init_
+from ..parallel.mesh import cross_replica_mean, is_data_parallel, make_dp_train_step, shard_batch
 from ..utils.util import opt_get
 from .base_model import BaseModel
 from .lr_scheduler import build_schedule
@@ -76,8 +86,14 @@ class LLFlowModel(BaseModel):
             self.load_into(self.net_hq, self._torchify(vq_path), strict=False)
         self._actnorm_inited = False
         self._finalize()
+        self.dp = None   # the DDP wrapper of netG under data parallelism
         if self.is_train:
             self._build_optimizer(opt.get("train") or {})
+            if is_data_parallel() and opt.get("use_dp") is not False:
+                for m in self.netG.modules():
+                    if isinstance(m, ActNorm2d):
+                        m.stats_over_ranks = True
+                self.dp = make_dp_train_step(self.netG)
 
     def _finalize(self):
         """Move to the device, channels_last and the compute dtype. Inference: eval
@@ -139,19 +155,26 @@ class LLFlowModel(BaseModel):
             h, _ = self.net_hq.encode(_nchw(gt, self.device))
         return h
 
+    def _put_batch(self, x):
+        """Under data parallelism the rank's block of the global batch ``x``."""
+        return x if self.dp is None else shard_batch(x)
+
     def initialize_actnorm(self, batch):
         """The ActNorm data-dependent init on ``batch`` = {"LQ", "GT"}: one
-        ``normal_flow(ddinit=True)`` without a graph. Runs once."""
+        ``normal_flow(ddinit=True)`` without a graph (under data parallelism on the
+        rank's block, with statistics over the whole batch). Runs once."""
         if self._actnorm_inited:
             return
         with torch.no_grad():
-            self.netG.normal_flow(self._encode_gt(batch["GT"]), _nchw(batch["LQ"], self.device),
-                                  ddinit=True)
+            self.netG.normal_flow(self._encode_gt(self._put_batch(batch["GT"])),
+                                  _nchw(self._put_batch(batch["LQ"]), self.device), ddinit=True)
         self._actnorm_inited = True
 
     def train_loss(self, lq, gt):
-        """weight_fl * mean(nll) on one batch, with the graph. lq, gt [B, H, W, 3]."""
-        _, nll, _ = self.netG.normal_flow(self._encode_gt(gt), _nchw(lq, self.device))
+        """weight_fl * mean(nll) on one batch, with the graph. lq, gt [B, H, W, 3]
+        (under data parallelism the global batch, of which this rank takes its block)."""
+        flow = self.netG.normal_flow if self.dp is None else functools.partial(self.dp, "normal_flow")
+        _, nll, _ = flow(self._encode_gt(self._put_batch(gt)), _nchw(self._put_batch(lq), self.device))
         return self.weight_fl * nll.mean()
 
     def optimize_parameters(self, batch, step=None):
@@ -164,7 +187,8 @@ class LLFlowModel(BaseModel):
         loss = self.train_loss(batch["LQ"], batch["GT"])
         loss.backward()
         self._update()
-        self.log_dict = {"nll_loss": float(loss.detach())}
+        loss = loss.detach() if self.dp is None else cross_replica_mean(loss.detach())
+        self.log_dict = {"nll_loss": float(loss)}
         return self.log_dict["nll_loss"]
 
     def resume_training(self, path):

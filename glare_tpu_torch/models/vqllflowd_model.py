@@ -30,10 +30,22 @@ use), the VQGAN decodes in bf16 as in serving, the flow, the losses and the
 optimizer stay float32. On the card the DCNs run the forward kernel and
 ``csrc/dcn_bwd.cu`` under autograd (float32: the ``f32`` forward entry; bf16: the
 Hopper entry and the bf16 backward entries).
+
+Data parallelism (the JAX model's mesh switch): when a ``torch.distributed`` group
+of more than one rank is up and ``opt["use_dp"]`` is not false, every rank is
+handed the same global batch and trains on its block of it (``shard_batch``; the
+whole batch when it does not divide), the AFT runs under
+``DistributedDataParallel`` (its gradients averaged over the ranks; ``parallelize``
+offers FSDP2 instead), and the batch means inside the
+step (the AFT's ``mean(h) / mean(x_vq)``, MS-SSIM's level means) are taken over
+the whole batch (``parallel.global_mean``, a differentiable all-reduce), so that
+the step equals the single-process step on the global batch. The logged losses
+are the ranks' mean.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 
@@ -45,6 +57,8 @@ from ..modules.msssim import msssim
 from ..modules.vqllflow_deformable import VQLLFLOWDeformable
 from ..nn.layers import cast_convs_, seed_init_
 from ..ops.dcn import cascade_rows_per_block
+from ..parallel.mesh import (cross_replica_mean, global_mean, is_data_parallel, make_dp_train_step,
+                             make_fsdp_train_step, make_mesh, shard_batch)
 from ..utils.util import opt_get
 from .base_model import BaseModel
 from .lr_scheduler import build_schedule
@@ -92,8 +106,11 @@ class VQLLFLOWDModel(BaseModel):
         if g_path and os.path.exists(self._torchify(g_path)):
             self.load_into(self.netG, self._torchify(g_path), strict=False)
         self._finalize()
+        self.dp = None   # the wrapper of netG under data parallelism (parallelize)
         if self.is_train:
             self._build_optimizer(opt.get("train") or {})
+            if is_data_parallel() and opt.get("use_dp") is not False:
+                self.parallelize("ddp")
             self.perceptual = PerceptualNetwork().to(self.device)
             if not self.perceptual.pretrained:
                 import logging
@@ -153,19 +170,48 @@ class VQLLFLOWDModel(BaseModel):
             eps=1e-8, weight_decay=float(train_opt.get("weight_decay_G") or 0))
         self.updates = 0  # updates applied: optax's count, the schedule's argument
 
+    def parallelize(self, mode="ddp", mesh=None):
+        """Train data-parallel over the ``torch.distributed`` group: ``"ddp"`` wraps
+        netG in ``DistributedDataParallel`` (what a group of more than one rank
+        gets by itself); ``"fsdp"`` shards it with FSDP2 over ``mesh`` (default:
+        ``make_mesh()``) by ``parallel.auto_shardings``' rule and rebuilds the
+        optimizer on the sharded parameters. Either way the step's netG calls go
+        through the wrapper and each rank takes its block of the batch.
+        Checkpoints are written from a one-process or DDP model."""
+        if mode == "fsdp":
+            self.dp, self.fsdp_specs = make_fsdp_train_step(self.netG, mesh or make_mesh())
+            self._build_optimizer(self.opt.get("train") or {})
+        elif mode == "ddp":
+            self.dp = make_dp_train_step(self.netG, mesh)
+        else:
+            raise ValueError(f"parallelize: mode {mode!r} is 'ddp' or 'fsdp'")
+        return self.dp
+
     def _pipeline(self, x_in):
         """latent_half and the VQGAN decode without a graph (both frozen, and the
         JAX step stops their gradient), then the AFT decoder with one."""
+        net = functools.partial(getattr, self.netG) if self.dp is None else \
+            (lambda method: functools.partial(self.dp, method))
         with torch.no_grad():
-            x, lr_enc = self.netG.latent_half(x_in)
+            x, lr_enc = net("latent_half")(x_in)
             _, _, code_out = self.net_hq.decode(x)
-        return self.netG.aft_half(x, code_out, lr_enc["mid_feat"])
+        # under data parallelism the AFT's two means span the ranks' blocks: every
+        # rank runs this step; get_sr (rank 0's validation) keeps its own batch's
+        aft = self.netG.deformable_decoder
+        aft.means_over_ranks = self.dp is not None
+        try:
+            return net("aft_half")(x, code_out, lr_enc["mid_feat"])
+        finally:
+            aft.means_over_ranks = False
 
     def train_losses(self, lq, gt):
         """-> (total, (l1, percep, ssim)) of the reference's stage-3 objective, with
-        the graph. lq, gt [B, H, W, 3] float32."""
+        the graph. lq, gt [B, H, W, 3] float32 (under data parallelism the global
+        batch, of which this rank takes its block)."""
         lq = torch.as_tensor(lq, dtype=torch.float32, device=self.device)
         gt = torch.as_tensor(gt, dtype=torch.float32, device=self.device)
+        if self.dp is not None:
+            lq, gt = shard_batch(lq), shard_batch(gt)
         x_in = lq.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         rec = self._pipeline(x_in).float().permute(0, 2, 3, 1)
         self._dcn_overflow_raw = self.netG.deformable_decoder.dcn_overflow()
@@ -174,7 +220,8 @@ class VQLLFLOWDModel(BaseModel):
         sr = torch.nan_to_num(sr)
         l1 = ((sr - gt) * not_nan).abs().mean()
         percep = self.perceptual(sr, gt) * 0.01
-        ssim_l = (1.0 - msssim(sr, gt, normalize=True)) * 0.2
+        ssim_l = (1.0 - msssim(sr, gt, normalize=True,
+                               batch_mean=torch.mean if self.dp is None else global_mean)) * 0.2
         return l1 + percep + ssim_l, (l1, percep, ssim_l)
 
     def optimize_parameters(self, batch, step=None):
@@ -184,8 +231,10 @@ class VQLLFLOWDModel(BaseModel):
         total, (l1, percep, ssim_l) = self.train_losses(batch["LQ"], batch["GT"])
         total.backward()
         self._update()
-        self.log_dict = {"total_loss": float(total.detach()), "l1_loss": float(l1.detach()),
-                         "percep_loss": float(percep.detach()), "ssim_loss": float(ssim_l.detach())}
+        losses = torch.stack([total, l1, percep, ssim_l]).detach()
+        if self.dp is not None:
+            losses = cross_replica_mean(losses)
+        self.log_dict = dict(zip(("total_loss", "l1_loss", "percep_loss", "ssim_loss"), losses.tolist()))
         return (self.log_dict["total_loss"], self.log_dict["percep_loss"],
                 self.log_dict["l1_loss"], self.log_dict["ssim_loss"])
 

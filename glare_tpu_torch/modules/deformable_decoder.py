@@ -31,6 +31,7 @@ from torch import nn
 from ..nn.layers import AttnBlock, Conv, GroupNorm32, ResnetBlock, Upsample, swish
 from ..ops import dcn as dcn_ops
 from ..ops import warp as warp_ops
+from ..parallel.mesh import global_mean
 
 
 class DCNv2Pack(nn.Module):
@@ -232,7 +233,12 @@ class MultiScaleDecoder2(nn.Module):
 
     The four ``dcn_*`` knobs accept a scalar (shared by both warps) or a
     2-sequence indexed by warp id (warp 0 = quarter-res level, warp 1 = half-res).
+    The two means are over the whole batch (all axes), as in JAX and the reference;
+    ``means_over_ranks`` (set by a data-parallel model) takes them over the whole
+    batch of the ``torch.distributed`` group (``parallel.global_mean``).
     """
+
+    means_over_ranks = False
 
     def __init__(self, ch=128, out_ch=3, ch_mult: Sequence[int] = (1, 2, 4), num_res_blocks=2,
                  attn_resolutions: Sequence[int] = (64,), dropout=0.0, resolution=256,
@@ -295,7 +301,8 @@ class MultiScaleDecoder2(nn.Module):
                 h = self.mix[w](enc_feat[i_level].to(h.dtype), h)
                 x_vq = self.warp[w](x_code, h)
                 # the JAX module's jnp.mean: float32 sums, a result in h's dtype
-                ratio = h.float().mean().to(h.dtype) / x_vq.float().mean().to(h.dtype)
+                mean = global_mean if self.means_over_ranks else torch.mean
+                ratio = mean(h.float()).to(h.dtype) / mean(x_vq.float()).to(h.dtype)
                 h = h + x_vq * ratio
             if i_level != 0:
                 h = level.upsample(h)

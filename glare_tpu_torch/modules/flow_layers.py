@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import at_least_float32
+from ..parallel.mesh import moments_over_ranks
 
 
 def pixels(x):
@@ -61,7 +62,12 @@ def cat_feature(a, b):
 
 
 class ActNorm2d(nn.Module):
-    """Per-channel learned bias + log-scale, with data-dependent init."""
+    """Per-channel learned bias + log-scale, with data-dependent init.
+
+    ``stats_over_ranks`` (set by a data-parallel model) takes the init's statistics
+    over the whole batch of the ``torch.distributed`` group, not the rank's block."""
+
+    stats_over_ranks = False
 
     def __init__(self, num_features, scale=1.0):
         super().__init__()
@@ -73,10 +79,15 @@ class ActNorm2d(nn.Module):
     def initialize(self, x):
         """Set ``bias`` / ``logs`` from the float32 statistics (float64 in a float64
         run) of ``x`` over batch and space: b = -mean(x), var = mean((x + b)^2) (the
-        population variance), logs = log(scale / (sqrt(var) + 1e-6))."""
+        population variance), logs = log(scale / (sqrt(var) + 1e-6)). Under data
+        parallelism both are all-reduced sums over the ranks' blocks, in two passes."""
         xf = at_least_float32(x)
-        b = -xf.mean(dim=(0, 2, 3), keepdim=True)
-        var = ((xf + b) ** 2).mean(dim=(0, 2, 3), keepdim=True)
+        if self.stats_over_ranks:
+            mean, var = moments_over_ranks(xf, (0, 2, 3))
+            b = -mean
+        else:
+            b = -xf.mean(dim=(0, 2, 3), keepdim=True)
+            var = ((xf + b) ** 2).mean(dim=(0, 2, 3), keepdim=True)
         self.bias.copy_(b)
         self.logs.copy_(torch.log(self.scale / (torch.sqrt(var) + 1e-6)))
 

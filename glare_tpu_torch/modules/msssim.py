@@ -35,8 +35,9 @@ def _filter_valid(img, window):
     return F.conv2d(x, k, groups=c).permute(0, 2, 3, 1)
 
 
-def ssim(img1, img2, window_size=11, val_range=1.0, full=False):
-    """Mean SSIM over the batch; NHWC inputs in [0, 1]."""
+def ssim(img1, img2, window_size=11, val_range=1.0, full=False, batch_mean=torch.mean):
+    """Mean SSIM over the batch; NHWC inputs in [0, 1]. ``batch_mean`` takes the two
+    means over batch and space (data parallelism passes ``parallel.global_mean``)."""
     h, w = img1.shape[1], img1.shape[2]
     window = _gaussian_window(min(window_size, h, w), device=img1.device)
     mu1 = _filter_valid(img1, window)
@@ -51,16 +52,19 @@ def ssim(img1, img2, window_size=11, val_range=1.0, full=False):
     C2 = (0.03 * val_range) ** 2
     v1 = 2.0 * sigma12 + C2
     v2 = sigma1_sq + sigma2_sq + C2
-    cs = (v1 / v2).mean()
-    ret = (((2 * mu1_mu2 + C1) * v1) / ((mu1_sq + mu2_sq + C1) * v2)).mean()
+    cs = batch_mean(v1 / v2)
+    ret = batch_mean(((2 * mu1_mu2 + C1) * v1) / ((mu1_sq + mu2_sq + C1) * v2))
     return (ret, cs) if full else ret
 
 
-def msssim(img1, img2, window_size=11, val_range=1.0, normalize=False):
-    """5-level MS-SSIM (reference: pytorch_msssim/__init__.py:71-104)."""
+def msssim(img1, img2, window_size=11, val_range=1.0, normalize=False, batch_mean=torch.mean):
+    """5-level MS-SSIM (reference: pytorch_msssim/__init__.py:71-104). The levels'
+    means combine non-linearly, so a data-parallel step passes the whole batch's
+    mean as ``batch_mean`` (see :func:`ssim`)."""
     mssim, mcs = [], []
     for _ in _WEIGHTS:
-        sim, cs = ssim(img1, img2, window_size=window_size, val_range=val_range, full=True)
+        sim, cs = ssim(img1, img2, window_size=window_size, val_range=val_range, full=True,
+                       batch_mean=batch_mean)
         mssim.append(sim)
         mcs.append(cs)
         img1 = F.avg_pool2d(img1.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)

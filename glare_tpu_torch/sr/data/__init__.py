@@ -1,9 +1,10 @@
 """Dataset registry and loader factory (counterpart of ``glare_tpu/sr/data/__init__.py``;
 reference: basicsr/data/__init__.py), on the port's ``data/loader.py``.
 
-One process, one device: there is no ``EnlargedSampler`` (rank-sharded
-sampling belongs to data parallelism, ROADMAP.md queue 1, item 3), and
-``prefetch_mode`` is not honoured (batches are built in the training loop).
+Under data parallelism the training loader draws the rank's indices from an
+``EnlargedSampler`` (``sampler=``); in one process it keeps its own seeded
+shuffle, as the JAX loader does. ``prefetch_mode`` is not honoured (batches are
+built in the training loop).
 """
 
 from ...data.loader import DataLoader
@@ -16,9 +17,10 @@ def build_dataset(dataset_opt):
     return DATASET_REGISTRY.get(dataset_opt["type"])(dict(dataset_opt))
 
 
-def build_dataloader(dataset, dataset_opt, seed=0):
-    """Training: batches of ``batch_size_per_gpu`` (or ``batch_size``), shuffled
-    unless ``use_shuffle`` is false, the last short batch dropped; else one by one."""
+def build_dataloader(dataset, dataset_opt, seed=0, sampler=None):
+    """Training: batches of ``batch_size_per_gpu`` (or ``batch_size``), in the
+    ``sampler``'s order when one is given, else shuffled unless ``use_shuffle`` is
+    false, the last short batch dropped; else one by one."""
     if dataset_opt.get("phase", "train") == "train":
         return DataLoader(
             dataset,
@@ -26,5 +28,6 @@ def build_dataloader(dataset, dataset_opt, seed=0):
             shuffle=bool(dataset_opt.get("use_shuffle", True)),
             drop_last=True,
             seed=seed,
+            sampler=sampler,
         )
     return DataLoader(dataset, batch_size=1, shuffle=False, drop_last=False, seed=seed)

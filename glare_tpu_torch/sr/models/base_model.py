@@ -19,6 +19,7 @@ from typing import Any, Dict
 import torch
 
 from ...models.base_model import resolve_device
+from ...parallel.mesh import cross_replica_mean, is_data_parallel
 from ...utils.util import natsorted
 
 
@@ -128,7 +129,14 @@ class BaseSRModel:
         return torch.load(path, map_location="cpu", weights_only=True)
 
     def reduce_loss_dict(self, loss_dict):
-        """One process: the losses as they are, read lazily (see :class:`_LazyLossDict`)."""
+        """The losses, read lazily (see :class:`_LazyLossDict`); under data
+        parallelism first averaged over the ranks in one all-reduce (reference:
+        base_model.py:371-396), so that rank 0 logs the global losses."""
+        if is_data_parallel():
+            keys = [k for k, v in loss_dict.items() if torch.is_tensor(v)]
+            if keys:
+                vals = cross_replica_mean(torch.stack([loss_dict[k].detach().float().reshape(()) for k in keys]))
+                loss_dict = {**loss_dict, **dict(zip(keys, vals))}
         return _LazyLossDict(loss_dict)
 
     def get_current_log(self):

@@ -22,6 +22,14 @@ One iteration (:meth:`optimize_parameters`), as the JAX model's:
 Adam (AdamW with ``weight_decay``) at the conf's lr, betas (0.9, 0.99) by
 default, eps 1e-8, constant lr (the JAX model builds no scheduler).
 Tensors: batches are NHWC in [0, 1]; the networks run NCHW in channels_last.
+
+Data parallelism (``sr.train --launcher pytorch``): each rank trains on its own
+batch (the sampler's indices), from rank 0's weights; after each backward the
+gradients of both networks are averaged over the ranks explicitly
+(``parallel.average_gradients``), not by DDP: the discriminator runs twice before
+one backward in the d step and once more inside the g step, only the d step's
+real forward stores the spectral ``u``, and the LQ stage's frozen tensors have no
+gradient. The losses are the ranks' mean (``reduce_loss_dict``).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch.nn.functional as F
 
 from ...models.base_model import BaseModel
 from ...nn.layers import seed_init_
+from ...parallel.mesh import average_gradients, is_data_parallel, replicate
 from ...utils.util import opt_get
 from ..archs import build_network
 from ..losses import build_loss
@@ -151,6 +160,12 @@ class VQDehazeModel(BaseSRModel):
                     p.requires_grad_(False)
         self.optimizer_g = _make_optimizer(train_opt["optim_g"], self.trainable_parameters())
         self.optimizer_d = _make_optimizer(train_opt["optim_d"], list(self.net_d.parameters()))
+        # data parallelism: rank 0's weights everywhere (the seed is offset by the
+        # rank), then each step's gradients averaged explicitly over the ranks
+        self.dp = is_data_parallel() and self.opt.get("use_dp") is not False
+        if self.dp:
+            replicate(self.net_g)
+            replicate(self.net_d)
 
     def trainable_parameters(self):
         return [p for p in self.net_g.parameters() if p.requires_grad]
@@ -215,6 +230,8 @@ class VQDehazeModel(BaseSRModel):
         self.optimizer_g.zero_grad(set_to_none=True)
         total, losses, z_q, z_hq = self.g_losses(lq, gt, use_gan_now)
         total.backward()
+        if self.dp:
+            average_gradients(self.trainable_parameters())
         self.optimizer_g.step()
         loss_dict = {**{k: v.detach() for k, v in losses.items()}, "l_g_total": total.detach()}
 
@@ -223,6 +240,8 @@ class VQDehazeModel(BaseSRModel):
             self.optimizer_d.zero_grad(set_to_none=True)
             l_d, d_losses = self.d_losses(z_gt, z_q.detach())
             l_d.backward()
+            if self.dp:
+                average_gradients(self.net_d.parameters())
             self.optimizer_d.step()
             loss_dict.update({k: v.detach() for k, v in d_losses.items()})
 

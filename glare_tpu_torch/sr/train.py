@@ -3,6 +3,7 @@ reference: basicsr/train.py).
 
     python -m glare_tpu_torch.sr.train -opt confs/stage1_HQ_pretrain.yml [--auto_resume] \
         [--debug] [--device cpu]
+    torchrun --nproc_per_node=N -m glare_tpu_torch.sr.train -opt CONF --launcher pytorch
 
 Runs on ``cuda`` unless ``--device cpu`` is given; with no GPU and no explicit
 ``--device cpu`` it raises. Kept from the JAX loop: resume (``--auto_resume``:
@@ -13,6 +14,13 @@ train / val loaders, the print / checkpoint / validation cadence
 (``logger.print_freq``, ``logger.save_checkpoint_freq``, ``val.val_freq``),
 best-PSNR snapshots, and a final save and validation. The final checkpoint is
 labelled with the updates made (``total_iter``).
+
+Data parallelism (``--launcher pytorch`` under ``torchrun``): each rank draws its
+own batches through an ``EnlargedSampler`` (``set_epoch`` every epoch; an epoch
+is ``ceil(len * ratio / (batch_size_per_gpu * world_size))`` iterations), the
+model averages the gradients over the ranks, and rank 0 alone logs, validates and
+writes the experiment tree and checkpoints. In one process the loader keeps its
+own seeded shuffle, as the JAX loop's does.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import time
 import numpy as np
 
 from ..models.base_model import resolve_device
+from ..parallel.mesh import EnlargedSampler
 from ..utils import mkdir_and_rename, set_random_seed, setup_logger
 from ..utils.metrics import PSNR, calculate_ssim, img_as_ubyte
 from ..utils.util import natsorted
@@ -47,14 +56,19 @@ def load_resume_state(opt):
 
 
 def create_train_val_dataloader(opt, logger):
-    train_loader, val_loaders, total_iters, total_epochs = None, [], 0, 0
+    """-> (train loader, its sampler (None in one process), val loaders, epochs, iterations)."""
+    train_loader, train_sampler, val_loaders, total_iters, total_epochs = None, None, [], 0, 0
+    world = opt.get("world_size") or 1
     for phase, dataset_opt in opt["datasets"].items():
         if phase == "train":
             train_set = build_dataset(dataset_opt)
-            train_loader = build_dataloader(train_set, dataset_opt, seed=opt["manual_seed"])
             ratio = dataset_opt.get("dataset_enlarge_ratio", 1) or 1
+            if world > 1:
+                train_sampler = EnlargedSampler(len(train_set), world, opt["rank"], ratio)
+            train_loader = build_dataloader(train_set, dataset_opt, seed=opt["manual_seed"],
+                                            sampler=train_sampler)
             per_epoch = math.ceil(len(train_set) * ratio / (
-                dataset_opt.get("batch_size_per_gpu") or dataset_opt.get("batch_size") or 1))
+                (dataset_opt.get("batch_size_per_gpu") or dataset_opt.get("batch_size") or 1) * world))
             total_iters = int(opt["train"]["total_iter"])
             total_epochs = math.ceil(total_iters / max(per_epoch, 1))
             logger.info(f"Training statistics:\n\tNumber of train images: {len(train_set)}"
@@ -62,7 +76,7 @@ def create_train_val_dataloader(opt, logger):
         elif phase.split("_")[0] == "val":
             val_loaders.append(build_dataloader(build_dataset(dataset_opt), dataset_opt,
                                                 seed=opt["manual_seed"]))
-    return train_loader, val_loaders, total_epochs, total_iters
+    return train_loader, train_sampler, val_loaders, total_epochs, total_iters
 
 
 def validate(model, val_loader, current_iter, logger, tb_logger, opt):
@@ -98,22 +112,29 @@ def train_pipeline(root_path=None, argv=None):
     elif opt["val"].get("metrics") is None:
         opt["val"]["metrics"] = {"psnr": {"type": "psnr", "better": "higher"}}
 
+    main_rank = opt["rank"] == 0   # rank 0 alone writes the tree, logs, validates and saves
     resume_state_path = load_resume_state(opt)
-    if resume_state_path is None:
+    if resume_state_path is None and main_rank:
         mkdir_and_rename(opt["path"]["experiments_root"])
         os.makedirs(opt["path"]["models"], exist_ok=True)
         os.makedirs(opt["path"]["training_states"], exist_ok=True)
+    if opt["world_size"] > 1:
+        import torch.distributed as dist
 
-    setup_logger("base", opt["path"]["log"], "train", screen=True, tofile=True)
+        dist.barrier()
+
+    setup_logger("base", opt["path"]["log"], "train", level=logging.INFO if main_rank else logging.WARNING,
+                 screen=True, tofile=main_rank)
     logger = logging.getLogger("base")
     logger.info(get_env_info())
     set_random_seed(opt["manual_seed"])
 
     tb_logger = None
-    if (opt.get("logger") or {}).get("use_tb_logger") and "debug" not in opt["name"]:
+    if main_rank and (opt.get("logger") or {}).get("use_tb_logger") and "debug" not in opt["name"]:
         tb_logger = init_tb_logger(os.path.join(opt["path"]["experiments_root"], "tb_logger"))
 
-    train_loader, val_loaders, total_epochs, total_iters = create_train_val_dataloader(opt, logger)
+    train_loader, train_sampler, val_loaders, total_epochs, total_iters = create_train_val_dataloader(
+        opt, logger)
     model = build_model(opt, device=device)
 
     start_epoch, current_iter = 0, 0
@@ -133,6 +154,8 @@ def train_pipeline(root_path=None, argv=None):
     for epoch in range(start_epoch, total_epochs + 1):
         if current_iter >= total_iters:
             break
+        if train_sampler is not None:
+            train_sampler.set_epoch(epoch)
         for batch in train_loader:
             if current_iter >= total_iters:
                 break
@@ -140,16 +163,16 @@ def train_pipeline(root_path=None, argv=None):
             current_iter += 1
             model.optimize_parameters(current_iter, batch)
             iter_timer.record()
-            if current_iter % print_freq == 0:
+            if current_iter % print_freq == 0 and main_rank:
                 log_vars = {"epoch": epoch, "iter": current_iter,
                             "lrs": [float(opt["train"]["optim_g"].get("lr", 0))],
                             "time": iter_timer.get_avg_time(), "data_time": data_timer.get_avg_time()}
                 log_vars.update(model.get_current_log().items())
                 msg_logger(log_vars)
-            if current_iter % save_freq == 0:
+            if current_iter % save_freq == 0 and main_rank:
                 logger.info("Saving models and training states.")
                 model.save(epoch, current_iter)
-            if current_iter % val_freq == 0:
+            if current_iter % val_freq == 0 and main_rank:
                 for vl in val_loaders:
                     validate(model, vl, current_iter, logger, tb_logger, opt)
             data_timer.start()
@@ -157,9 +180,10 @@ def train_pipeline(root_path=None, argv=None):
 
     consumed = datetime.timedelta(seconds=int(time.time() - start_time))
     logger.info(f"End of training. Time consumed: {consumed}")
-    model.save(epoch=-1, current_iter=current_iter)
-    for vl in val_loaders:
-        validate(model, vl, current_iter, logger, tb_logger, opt)
+    if main_rank:
+        model.save(epoch=-1, current_iter=current_iter)
+        for vl in val_loaders:
+            validate(model, vl, current_iter, logger, tb_logger, opt)
     if tb_logger:
         tb_logger.close()
     return model, current_iter

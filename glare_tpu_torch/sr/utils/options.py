@@ -2,12 +2,17 @@
 reference: basicsr/utils/options.py).
 
 ``-opt CONF`` (YAML), ``--auto_resume``, ``--debug`` (a ``debug_`` name prefix
-and dense print / save / validation cadence) and ``--device`` (``cuda``, the
-default, or ``cpu``; ``opt["device"]``). One process on one device: the JAX
-``--launcher`` / ``--local_rank`` flags and the seed's rank offset belong to
-data parallelism, which the port does not have yet. The experiment tree goes
-under ``$GLARE_ROOT`` (default: the working directory). ``yaml`` is imported
-inside :func:`ordered_yaml_load`.
+and dense print / save / validation cadence), ``--device`` (``cuda``, the
+default, or ``cpu``; ``opt["device"]``) and the JAX package's
+``--launcher {none, pytorch, slurm, jax}`` / ``--local_rank``. ``pytorch`` joins
+the process group of ``torchrun``'s environment (``parallel.init_distributed``:
+NCCL on the card, gloo on the CPU); ``slurm`` first maps ``SLURM_PROCID``,
+``SLURM_NTASKS`` and ``SLURM_LOCALID`` onto that environment; ``jax`` names the
+JAX package's multi-host initialisation and raises. ``opt["rank"]`` /
+``opt["world_size"]`` are set, each rank takes its own card
+(``LOCAL_RANK``), and the seed is offset by the rank (reference:
+options.py:108-114). The experiment tree goes under ``$GLARE_ROOT`` (default:
+the working directory). ``yaml`` is imported inside :func:`ordered_yaml_load`.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import os
 import random
 
 from ...options.options import _ordered_loader, dict_to_nonedict
+from ...parallel.mesh import init_distributed, local_device
 
 
 def ordered_yaml_load(path):
@@ -32,13 +38,31 @@ def parse_options(root_path=None, is_train=True, argv=None):
     parser.add_argument("--auto_resume", action="store_true")
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    parser.add_argument("--launcher", choices=["none", "pytorch", "slurm", "jax"], default="none")
+    parser.add_argument("--local_rank", type=int, default=0)
     args = parser.parse_args(argv)
     root_path = root_path or os.environ.get("GLARE_ROOT", os.getcwd())
 
     opt = ordered_yaml_load(args.opt)
     opt["device"] = args.device
-    if opt.get("manual_seed") is None:
-        opt["manual_seed"] = random.randint(1, 10000)
+    opt["dist"] = args.launcher != "none"
+    opt["rank"], opt["world_size"] = 0, 1
+    if args.launcher == "jax":
+        raise ValueError("--launcher jax is the JAX package's multi-host initialisation; the port "
+                         "runs one process per card: start it with torchrun and --launcher pytorch")
+    if opt["dist"]:
+        if args.launcher == "slurm":
+            for var, slurm in (("RANK", "SLURM_PROCID"), ("WORLD_SIZE", "SLURM_NTASKS"),
+                               ("LOCAL_RANK", "SLURM_LOCALID")):
+                if slurm in os.environ:
+                    os.environ.setdefault(var, os.environ[slurm])
+        os.environ.setdefault("LOCAL_RANK", str(args.local_rank))
+        opt["rank"], opt["world_size"] = init_distributed(args.device)
+        opt["device"] = str(local_device(args.device))
+    seed = opt.get("manual_seed")
+    if seed is None:
+        seed = random.randint(1, 10000)
+    opt["manual_seed"] = seed + opt["rank"]
     opt["auto_resume"] = args.auto_resume
     opt["is_train"] = is_train
     if args.debug and not opt["name"].startswith("debug"):

@@ -98,6 +98,9 @@ def _seeded_lpips_npz(path, seed=5):
 def test_lpips_matches_jax_and_measure_reports_nan_without_weights(tmp_path, monkeypatch, caplog):
     monkeypatch.setattr(tlpips, "probe_lpips_cache", lambda: None)
     monkeypatch.delenv("GLARE_LPIPS_NPZ", raising=False)
+    # a training CLI run earlier in the same process leaves "base" unpropagated
+    # (setup_logger); caplog reads records through the root logger
+    monkeypatch.setattr(logging.getLogger("base"), "propagate", True)
     m = tmeasure.Measure(device="cpu")
     rng = np.random.default_rng(1)
     a = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)

@@ -51,7 +51,12 @@ def test_sources_found():
             "glare_tpu_torch/sr/archs/swinir_arch.py", "glare_tpu_torch/sr/data/haze_online_dataset.py",
             "glare_tpu_torch/sr/utils/diffjpeg.py", "glare_tpu_torch/sr/utils/img_process_util.py",
             "glare_tpu_torch/sr/utils/lmdb_util.py", "glare_tpu_torch/sr/utils/flow_util.py",
-            "glare_tpu_torch/sr/utils/face_util.py", "glare_tpu_torch/modules/legacy_archs.py"} <= rel
+            "glare_tpu_torch/sr/utils/face_util.py", "glare_tpu_torch/modules/legacy_archs.py",
+            "glare_tpu_torch/parallel/__init__.py", "glare_tpu_torch/parallel/mesh.py",
+            "glare_tpu_torch/data/native.py", "glare_tpu_torch/utils/profiling.py",
+            "glare_tpu_torch/tools/flops_audit.py", "glare_tpu_torch/tools/offset_histogram.py",
+            "glare_tpu_torch/tools/active_codebook.py", "glare_tpu_torch/tools/profile_stage3.py",
+            "glare_tpu_torch/tools/profile_stage1.py", "glare_tpu_torch/tools/train_offset_drive.py"} <= rel
     # every kernel source and header the build compiles (python3 chip_smoke.py builds them all)
     from glare_tpu_torch.ops import _build
 
@@ -137,6 +142,15 @@ assert {"calculate_psnr", "calculate_ssim", "calculate_niqe", "calculate_fid"} <
 assert {"VQWeightDehazeNet", "UNetDiscriminatorSN", "SwinIR"} <= set(ARCH_REGISTRY.keys())
 assert "VQDehazeModel" in MODEL_REGISTRY
 assert {"SingleImageDataset", "HazeOnlineDataset"} <= set(DATASET_REGISTRY.keys())
+# the last slice: data parallelism, the native core, profiling and the model-driving tools
+for name in ("glare_tpu_torch.parallel", "glare_tpu_torch.parallel.mesh", "glare_tpu_torch.data.native",
+             "glare_tpu_torch.utils.profiling"):
+    assert name in sys.modules, name
+for name in ("flops_audit", "offset_histogram", "active_codebook", "profile_stage3", "profile_stage1",
+             "train_offset_drive"):
+    importlib.import_module("glare_tpu_torch.tools." + name)
+    n += 1
+assert "glare_tpu" not in sys.modules and "jax" not in [k for k, v in sys.modules.items() if v is not None]
 print("imported", n)
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
