@@ -89,8 +89,11 @@ Phases, each printing one JSON line:
              optimize_parameters that launch no kernel and no plain version,
              cli.train.validate (stage 2) at 600x400 with one vq_argmin launch
              an image; the first step's loss and gradients on the crop, card
-             against CPU; the saved {k}_G.pth in an inference model, get_sr
-             bit-equal
+             against CPU, and the step at the trained weights against the CPU's
+             float32 and float64 steps, then with the card's model in float64 too
+             against the CPU's float64 step (bar S2_F64_TOL, 10% / 1% / 0.1%
+             faults in one coupling's conditional backward as its controls); the
+             saved {k}_G.pth in an inference model, get_sr bit-equal
   train_stage1_path  stage-1 HQ pretraining at the full width of
              confs/stage1_HQ_pretrain.yml (VQWeightDehazeNet, codebook
              [64, 1024, 512], UNet-SN on the 512-channel latent, L1 + VGG19
@@ -110,9 +113,12 @@ Phases, each printing one JSON line:
              through the plain versions
   haze_lq_path  RIDCP's dehazing data path: HazeOnlineDataset (train, 256 crop)
              over eight seeded 400x600 images and depth maps through sr.data's
-             loader at batch 4, then two iterations of train_stage1_lq_path's
-             model (each exactly 2 f32 DCN forwards and 2 backward passes with
-             grad_x); host ms per item beside ms per iteration
+             loader at batch 4, the same two epochs with prefetch_mode (a
+             PrefetchDataLoader) bit-equal to the plain loader's, then two
+             iterations of train_stage1_lq_path's model (each exactly 2 f32 DCN
+             forwards and 2 backward passes with grad_x); host ms per item beside
+             ms per iteration; the loop with the loader inside it, prefetch off
+             and on in turns, in ms per iteration
   swinir_path  SwinIR-M (classical SR x4, seeded weights, float32): one
              256x256 image to 1024x1024; a 64x64 crop card against CPU
   degradation_path  DiffJPEG (per-sample quality, differentiable with a
@@ -2668,6 +2674,9 @@ ACTNORM_MEAN_TOL, ACTNORM_STD_TOL = 1e-4, 1e-3   # each ActNorm's output over th
 S2_TRAINED_TOL = 3e-3        # the step at the trained weights: each gradient's 2-norm distance, relative
 S2_FAULT = 1.1               # its control: a 10% fault in one coupling's conditional backward
 S2_FAULT_SMALL = 1.01        # reported: a 1% fault, the bar's resolution
+S2_F64_TOL = 1e-10           # the card's float64 step against the CPU's: each gradient's 2-norm distance
+                             # (measured 9.8e-15 on an H100; the 0.1% fault reads 2.0e-4: PERF.md section 6)
+S2_FAULT_TINY = 1.001        # reported beside the float64 bar: a 0.1% fault
 S2_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_stage2")
 
 
@@ -2805,8 +2814,13 @@ def _step_card_vs_cpu(model, cpu_model, crop, init_weights):
     ~1e-3 of the largest element; the 2-norm is not ruled by one element. Reported
     beside them: the CPU's own float32 distance from float64 and the card's step
     run again. The control, which must exceed the bar: the card's step with the fault of
-    _cond_grad_fault (S2_FAULT; S2_FAULT_SMALL reported). The CPU model is float64
-    afterwards."""
+    _cond_grad_fault (S2_FAULT; S2_FAULT_SMALL reported). (3) The same step at the
+    trained weights with the card's model widened to float64 too (a stage-2 step
+    launches no hand-written kernel), each gradient within S2_F64_TOL in the 2-norm
+    of the CPU's float64 step; its controls, the card's float64 step with the faults
+    S2_FAULT and S2_FAULT_SMALL, must exceed that bar (S2_FAULT_TINY reported). The
+    card's model is float32 again afterwards, at the trained weights; the CPU model
+    is float64."""
     cpu_crop = {k: v.cpu() for k, v in crop.items()}
     loss_k, loss_c, grads_k, grads_c = _losses_and_grads_card_cpu(model, cpu_model, crop, init_weights)
     top = max(float(g.abs().max()) for g in grads_c.values())
@@ -2826,6 +2840,27 @@ def _step_card_vs_cpu(model, cpu_model, crop, init_weights):
 
     def dist(got, want, norm=True):
         return _worst(_dists(got, want, top_t, "gradient", norm=norm))
+
+    model.netG.double()
+    model.net_hq.double()
+    model.netG.load_state_dict(trained)
+    loss_k64, grads_k64 = _loss_and_grads(model, crop)
+    faulty64 = {}
+    for fault in (S2_FAULT, S2_FAULT_SMALL, S2_FAULT_TINY):
+        with _cond_grad_fault(model.netG, fault):
+            faulty64[fault] = _loss_and_grads(model, crop)[1]
+    model.netG.float()
+    model.net_hq.float()
+    model.netG.load_state_dict(trained)
+    require(all(p.dtype == torch.float32 for p in model.netG.parameters()), "netG is not float32 again")
+    float64_cmp = {
+        "loss_card": loss_k64, "loss_cpu": loss_x, "loss_rel": abs(loss_k64 - loss_x) / abs(loss_x),
+        "grads": dist(grads_k64, exact),
+        "largest_element": dist(grads_k64, exact, False)["worst"],
+        "controls": {f"x {fault}": dist(g, exact)["worst"] for fault, g in faulty64.items()},
+        "tol": f"the loss within {S2_F64_TOL} relative and each gradient within {S2_F64_TOL} in the 2-norm "
+               f"of the CPU's float64 step; the controls x {S2_FAULT} and x {S2_FAULT_SMALL} above it "
+               f"(x {S2_FAULT_TINY} reported)"}
 
     trained_cmp = {
         "loss_card": loss_tk, "loss_cpu": loss_tc, "loss_float64": loss_x,
@@ -2847,7 +2882,7 @@ def _step_card_vs_cpu(model, cpu_model, crop, init_weights):
             "grads": first,
             "tol": f"loss {STEP_LOSS_TOL} relative; each gradient within {STEP_GRAD_TOL} of its largest "
                    f"(a tensor below {STEP_VANISH} of the step's largest must vanish on both)",
-            "at_trained_weights": trained_cmp}
+            "at_trained_weights": trained_cmp, "float64_at_trained_weights": float64_cmp}
 
 
 def _nll_at(model, weights, batches):
@@ -2973,6 +3008,13 @@ def phase_train_stage2_path():
                 f"trained weights, {key} {trained[key]['worst_tensor']}: {trained[key]['worst']:.3e}")
     require(trained["control"]["worst"] > S2_TRAINED_TOL,
             f"the control's fault reads {trained['control']['worst']:.3e}, within the bar")
+    f64 = step_cmp["float64_at_trained_weights"]
+    require(f64["grads"]["worst"] <= S2_F64_TOL,
+            f"float64 card against CPU, gradient {f64['grads']['worst_tensor']}: {f64['grads']['worst']:.3e}")
+    require(f64["loss_rel"] <= S2_F64_TOL, f"float64 loss: card {f64['loss_card']}, CPU {f64['loss_cpu']}")
+    for fault in (S2_FAULT, S2_FAULT_SMALL):
+        require(f64["controls"][f"x {fault}"] > S2_F64_TOL,
+                f"float64: the x {fault} fault reads {f64['controls'][f'x {fault}']:.3e}, within the bar")
     return path_counts, model
 
 
@@ -3854,19 +3896,85 @@ def _haze_folder(n=8, h=400, w=600):
     return gt_dir, depth_dir
 
 
-def phase_haze_lq_path(model=None):
+HAZE_TURNS = (False, True, True, False)   # prefetch off / on, in turns: one epoch each
+HAZE_RATIO = 2                            # the timed epochs: the 8 images twice, 4 iterations an epoch
+
+
+def _haze_epochs(dataset, opt, epochs=2):
+    """``epochs`` epochs of sr.data's build_dataloader(dataset, opt, seed=0), Python's
+    random and np.random seeded 0 first -> the host batches, epoch after epoch, and
+    the host ms per item of each (time the asking and the copy to the card)."""
+    import random
+
+    from glare_tpu_torch.sr.data import build_dataloader
+
+    random.seed(0)
+    np.random.seed(0)
+    loader = build_dataloader(dataset, opt, seed=0)
+    batches, item_ms = [], []
+    for _ in range(epochs):
+        it = iter(loader)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                break
+            batches.append(batch)
+            _ = {k: torch.from_numpy(v).to(DEV) for k, v in batch.items() if isinstance(v, np.ndarray)}
+            torch.cuda.synchronize()   # the item's time includes its copy to the card
+            item_ms.append((time.perf_counter() - t0) * 1e3 / S1_BATCH)
+    return loader, batches, item_ms
+
+
+def _same_batches(got, want):
+    return len(got) == len(want) and all(
+        g.keys() == w.keys() and all(np.array_equal(g[k], w[k]) if isinstance(w[k], np.ndarray) else g[k] == w[k]
+                                     for k in w) for g, w in zip(got, want))
+
+
+def _loop_epoch(model, loader, first_iter):
+    """One epoch of the training loop as sr.train runs it: ask the loader, move the
+    batch to the card, optimize_parameters; the card synchronized at the end. ->
+    (ms per iteration, host ms per iteration spent waiting on the loader and the
+    copy, host ms per iteration inside optimize_parameters until it returns,
+    iterations)."""
+    torch.cuda.synchronize()
+    t0, wait, step, n = time.perf_counter(), 0.0, 0.0, 0
+    it = iter(loader)
+    while True:
+        w0 = time.perf_counter()
+        batch = next(it, None)
+        if batch is None:
+            break
+        batch = {k: (torch.from_numpy(v).to(DEV) if isinstance(v, np.ndarray) else v) for k, v in batch.items()}
+        s0 = time.perf_counter()
+        model.optimize_parameters(first_iter + n, batch)
+        wait += s0 - w0
+        step += time.perf_counter() - s0
+        n += 1
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n, wait * 1e3 / n, step * 1e3 / n, n
+
+
+def phase_haze_lq_path(model=None, card="unknown"):
     """RIDCP's dehazing data path into the LQ stage: HazeOnlineDataset (phase train,
     gt_size 256, the JAX defaults for beta_range, A_range, color_p, color_range)
     over eight seeded 400x600 GT images and their depth maps, through sr.data's
     build_dataloader at batch 4 (Python's random and np.random seeded; two epochs,
-    the second's host time reported), then two LQ iterations, on the second
-    epoch's batches, of the model of train_stage1_lq_path (``model``; without it the
-    same model built here): each exactly 2 f32 DCN forwards and 2 backward passes
-    with grad_x, finite losses (_s1_iterations' checks). Timed: host ms per
-    dataset item beside ms per iteration."""
-    import random
+    the second's host time reported), the same two epochs with ``prefetch_mode:
+    cpu`` (the batches built by the PrefetchDataLoader's thread) bit-equal to them,
+    then two LQ iterations, on the second epoch's batches, of the model of
+    train_stage1_lq_path (``model``; without it the same model built here): each
+    exactly 2 f32 DCN forwards and 2 backward passes with grad_x, finite losses
+    (_s1_iterations' checks). Timed: host ms per dataset item beside ms per
+    iteration; then epochs of the loop with the loader inside it (an
+    EnlargedSampler of ratio HAZE_RATIO: 4 iterations an epoch), prefetch off and
+    on in turns (HAZE_TURNS), in ms per iteration, host ms per iteration waiting on
+    the loader and host ms per iteration inside optimize_parameters."""
     import shutil
 
+    from glare_tpu_torch.data.loader import PrefetchDataLoader
+    from glare_tpu_torch.parallel.mesh import EnlargedSampler
     from glare_tpu_torch.sr.data import build_dataloader, build_dataset
 
     gt_dir, depth_dir = _haze_folder()
@@ -3874,40 +3982,47 @@ def phase_haze_lq_path(model=None):
            "dataroot_depth": depth_dir, "batch_size_per_gpu": S1_BATCH}
     dataset = build_dataset(opt)
     require(len(dataset) == 8, f"HazeOnlineDataset found {len(dataset)} images")
-    random.seed(0)
-    np.random.seed(0)
-    loader = build_dataloader(dataset, opt, seed=0)
-    item_ms = []
-    for epoch in range(2):  # the first epoch pays one-time imports (scipy.linalg for the correlated noise)
-        batches, it = [], iter(loader)
-        while True:  # the loader builds each batch when asked: time the asking and the copy to the card
-            t0 = time.perf_counter()
-            batch = next(it, None)
-            if batch is None:
-                break
-            batches.append({k: (torch.from_numpy(v).to(DEV) if isinstance(v, np.ndarray) else v)
-                            for k, v in batch.items()})
-            torch.cuda.synchronize()
-            item_ms.append((time.perf_counter() - t0) * 1e3 / S1_BATCH)
-    require(len(batches) == 2 and all(b["lq"].shape == (S1_BATCH, S1_GT, S1_GT, 3) for b in batches),
+    # the first epoch pays one-time imports (scipy.linalg for the correlated noise)
+    _, host, item_ms = _haze_epochs(dataset, opt)
+    prefetcher, host_pre, _ = _haze_epochs(dataset, {**opt, "prefetch_mode": "cpu"})
+    require(isinstance(prefetcher, PrefetchDataLoader), "prefetch_mode did not give a PrefetchDataLoader")
+    require(len(host) == 4 and _same_batches(host_pre, host),
+            "the batches with prefetch_mode differ from the plain loader's")
+    batches = [{k: (torch.from_numpy(v).to(DEV) if isinstance(v, np.ndarray) else v) for k, v in b.items()}
+               for b in host[2:]]
+    require(all(b["lq"].shape == (S1_BATCH, S1_GT, S1_GT, 3) for b in batches),
             f"haze batches {[tuple(b['lq'].shape) for b in batches]}")
     value_range = {}  # the bicubic resize may ring a little past [0, 1], as in the reference
     for k in ("lq", "gt"):
         require(all(bool(torch.isfinite(b[k]).all()) for b in batches), f"haze batch {k} not finite")
         value_range[k] = [min(float(b[k].min()) for b in batches), max(float(b[k].max()) for b in batches)]
-    shutil.rmtree(HAZE_DIR, ignore_errors=True)
     built = model is None
     if built:
         model = _s1_lq_model()[0]
     per_step = {**{k: 0 for k in counters()}, "dcn_fwd_f32": 2, "dcn_bwd": 2}
     bwd_per_step = {**{k: 0 for k in dcn_ops.bwd_launches_by_entry}, "pass_x": 2}
     summary, path_counts, peak_mem = _s1_iterations(model, batches, per_step, bwd_per_step, first_iter=2001)
+
+    turns, first_iter = [], 3001
+    for prefetch in HAZE_TURNS:
+        sampler = EnlargedSampler(len(dataset), 1, 0, ratio=HAZE_RATIO)   # the same order in every turn
+        loader = build_dataloader(dataset, {**opt, "prefetch_mode": "cpu" if prefetch else None}, seed=0,
+                                  sampler=sampler)
+        ms, wait_ms, step_ms, n = _loop_epoch(model, loader, first_iter)
+        first_iter += n
+        turns.append({"prefetch": prefetch, "ms_per_iteration": ms, "host_wait_ms_per_iteration": wait_ms,
+                      "host_step_ms_per_iteration": step_ms, "iterations": n})
+    require(all(t["iterations"] == len(dataset) * HAZE_RATIO // S1_BATCH for t in turns),
+            f"loop epochs of {[t['iterations'] for t in turns]} iterations")
+    shutil.rmtree(HAZE_DIR, ignore_errors=True)
     emit({"phase": "haze_lq_path", "dataset": {k: v for k, v in opt.items() if not k.startswith("dataroot")},
           "images": [8, 400, 600], "lq_model": "built here" if built else "train_stage1_lq_path's",
           "host_ms_per_item": statistics.mean(item_ms[len(item_ms) // 2:]), "host_ms_per_item_by_batch": item_ms,
+          "prefetch_batches_equal": True,
           "value_range": value_range,
           **summary, "launches_total": path_counts, "expected_per_step": per_step,
-          "expected_bwd_per_step": bwd_per_step, "max_memory_allocated": peak_mem})
+          "expected_bwd_per_step": bwd_per_step, "max_memory_allocated": peak_mem,
+          "loop_with_loader": {"card": card, "turns": turns}})
     return path_counts
 
 
@@ -4524,7 +4639,7 @@ def main():
                 phase_profile(lambda: model.optimize_parameters(1001, batch),
                               "the same with torch.backends.cudnn.benchmark (convolution algorithms timed)")
     if "haze_lq_path" in phases:
-        counts["haze_lq_path"] = phase_haze_lq_path(model)
+        counts["haze_lq_path"] = phase_haze_lq_path(model, card)
     del model
     torch.cuda.empty_cache()
     if "swinir_path" in phases:

@@ -8,7 +8,8 @@ spectral=None)`` (the stage-1 ``VQWeightDehazeNet`` or ``UNetDiscriminatorSN``),
 ``flax_to_torch_swinir(params)``, ``flax_to_torch_rrdbnet(params)``,
 ``flax_to_torch_legacy(params, batch_stats)`` (``ColorEncoder`` and the base
 layers of ``modules/legacy_archs``), ``flax_to_torch_gumbel(params)`` and
-``flax_to_torch_ema(ema)`` (the two quantizer variants) take nested
+``flax_to_torch_ema(ema)`` (the two quantizer variants) and
+``flax_to_torch_resblock_gn(params)`` (``nn.ResBlockGN``) take nested
 dicts of numpy arrays (what ``flax.serialization.to_state_dict`` or
 ``jax.tree_util.tree_map(np.asarray, params)`` give) and return a ``state_dict``
 of torch tensors under the reference PyTorch names. The first three are the
@@ -72,6 +73,18 @@ def _put_resblock(sd, name, node):
     for sc in ("nin_shortcut", "conv_shortcut"):
         if sc in node:
             _put_conv(sd, f"{name}.{sc}", node[sc])
+
+
+def flax_to_torch_resblock_gn(params):
+    """flax ``ResBlockGN`` params -> the port's ``ResBlockGN`` ``state_dict`` (the
+    reference's names: ``norm1``, ``conv1``, ``norm2``, ``conv2``, ``conv_out``)."""
+    sd = {}
+    for norm in ("norm1", "norm2"):
+        _put_norm(sd, norm, params[norm])
+    for conv in ("conv1", "conv2", "conv_out"):
+        if conv in params:
+            _put_conv(sd, conv, params[conv])
+    return sd
 
 
 def _put_attn(sd, name, node):

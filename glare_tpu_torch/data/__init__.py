@@ -1,11 +1,11 @@
-"""Dataset factory and loader (the port's own copy of ``glare_tpu/data/``;
-reference: code/data/__init__.py:10-25). Datasets return NHWC numpy float32.
-The C++ loader of ``glare_tpu/data/native.py`` is not ported yet.
+"""Dataset factory and loaders (the port's own copy of ``glare_tpu/data/``;
+reference: code/data/__init__.py:10-25). Datasets return NHWC numpy float32;
+the C++ host path is ``data/native.py``.
 """
 
 from __future__ import annotations
 
-from .loader import DataLoader, create_dataloader
+from .loader import DataLoader, PrefetchDataLoader, create_dataloader
 from .lol_dataset import LoLDataset, LoLDatasetRIDCP, LoLDatasetV2
 
 
@@ -20,5 +20,5 @@ def create_dataset(dataset_opt, train, all_opt):
     raise NotImplementedError(f"Dataset [{name}] not recognized.")
 
 
-__all__ = ["create_dataset", "create_dataloader", "DataLoader", "LoLDataset", "LoLDatasetV2",
-           "LoLDatasetRIDCP"]
+__all__ = ["create_dataset", "create_dataloader", "DataLoader", "PrefetchDataLoader", "LoLDataset",
+           "LoLDatasetV2", "LoLDatasetRIDCP"]

@@ -3,6 +3,7 @@ from .layers import (
     Conv,
     Downsample,
     GroupNorm32,
+    ResBlockGN,
     ResnetBlock,
     Upsample,
     cast_convs_,
@@ -10,5 +11,5 @@ from .layers import (
     swish,
 )
 
-__all__ = ["AttnBlock", "Conv", "Downsample", "GroupNorm32", "ResnetBlock", "Upsample",
+__all__ = ["AttnBlock", "Conv", "Downsample", "GroupNorm32", "ResBlockGN", "ResnetBlock", "Upsample",
            "cast_convs_", "seed_init_", "swish"]

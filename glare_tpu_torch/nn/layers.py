@@ -1,8 +1,8 @@
 """Foundation layers (counterpart of ``glare_tpu/nn/layers.py``).
 
-ldm-style building blocks: ResnetBlock (GroupNorm32 + swish), AttnBlock
-(single-head full spatial attention), Up/Downsample (nearest x2 / zero-pad
-stride-2 conv). Modules carry the reference PyTorch ``state_dict`` names
+ldm-style building blocks: ResnetBlock (GroupNorm32 + swish), ResBlockGN
+(RIDCP's variant, a 1x1 ``conv_out`` shortcut), AttnBlock (single-head full
+spatial attention), Up/Downsample (nearest x2 / zero-pad stride-2 conv). Modules carry the reference PyTorch ``state_dict`` names
 (``norm1``, ``conv1``, ``nin_shortcut``, ``q``/``k``/``v``/``proj_out`` ...)
 with OIHW weights. Feature maps are logical NCHW in ``torch.channels_last``
 memory, so a pixel's channels are contiguous -- the layout the kernels read.
@@ -178,6 +178,29 @@ class ResnetBlock(nn.Module):
         if self.in_channels != self.out_channels:
             x = self.conv_shortcut(x) if hasattr(self, "conv_shortcut") else self.nin_shortcut(x)
         return x.to(h.dtype) + h
+
+
+class ResBlockGN(nn.Module):
+    """RIDCP-style residual block: GroupNorm -> swish -> 3x3 conv, twice, with a 1x1
+    ``conv_out`` shortcut on a channel change (reference:
+    deformableDecoder_arch.py:157-183)."""
+
+    def __init__(self, in_channels, out_channels=None):
+        super().__init__()
+        out_channels = out_channels or in_channels
+        self.norm1 = GroupNorm32(in_channels)
+        self.conv1 = Conv(in_channels, out_channels, 3, padding=1)
+        self.norm2 = GroupNorm32(out_channels)
+        self.conv2 = Conv(out_channels, out_channels, 3, padding=1)
+        if in_channels != out_channels:
+            self.conv_out = Conv(in_channels, out_channels, 1, padding=0)
+
+    def forward(self, x_in):
+        x = self.conv1(swish(self.norm1(x_in)))
+        x = self.conv2(swish(self.norm2(x)))
+        if hasattr(self, "conv_out"):
+            x_in = self.conv_out(x_in)
+        return x + x_in
 
 
 def _env_tristate(name) -> Optional[bool]:

@@ -17,6 +17,9 @@ zero. The contraction uses the weight flattened as ``[K, G, Cg, O] -> [9*C, O]``
 (row ``k*C + g*Cg + cg``) in both the kernel and the plain version.
 
   * :func:`modulated_deform_conv_ref` -- plain PyTorch by gathers.
+  * :func:`modulated_deform_conv_naive` -- the float64 loop oracle of the tests
+    (no clamp, small inputs only): the reference CUDA kernel's arithmetic
+    written out per output element.
   * :func:`modulated_deform_conv_cuda` -- the hand-written kernels that replace
     the Pallas ``_kernel_core``, one of four entries chosen by :func:`route`
     from dtype and widths before the launch: ``hopper`` (``csrc/dcn_hopper.cu``:
@@ -240,6 +243,50 @@ def modulated_deform_conv_ref(x, offset, mask, weight, bias=None, max_offset=Non
         outs.append(o.reshape(B, h1 - h0, W, O))
     out = torch.cat(outs, dim=1).to(x.dtype)
     return (out, clamp_overflow(offset, max_offset)) if return_overflow else out
+
+
+def modulated_deform_conv_naive(x, offset, mask, weight, bias=None, padding=1):
+    """Exact DCNv2 by direct per-pixel loops in float64 (numpy), for tests at a few
+    pixels and channels: layouts as the module's, any ``kh x kw`` weight, stride 1,
+    no clamp. Takes numpy arrays or CPU tensors -> float64 tensor ``[B, H, W, O]``."""
+    import numpy as np
+
+    x, offset, mask, weight = (np.asarray(a, np.float64) for a in (x, offset, mask, weight))
+    B, H, W, C = x.shape
+    kh, kw, _, O = weight.shape
+    G = offset.shape[3]
+    Cg = C // G
+    out = np.zeros((B, H, W, O))
+
+    def sample(b, py, px, c):
+        if py <= -1 or py >= H or px <= -1 or px >= W:
+            return 0.0
+        y0, x0 = int(np.floor(py)), int(np.floor(px))
+        v = 0.0
+        for dy in (0, 1):
+            for dx in (0, 1):
+                yy, xx = y0 + dy, x0 + dx
+                if 0 <= yy < H and 0 <= xx < W:
+                    v += (1 - abs(py - yy)) * (1 - abs(px - xx)) * x[b, yy, xx, c]
+        return v
+
+    for b in range(B):
+        for h in range(H):
+            for w in range(W):
+                for o in range(O):
+                    acc = 0.0
+                    for i in range(kh):
+                        for j in range(kw):
+                            k = i * kw + j
+                            for c in range(C):
+                                g = c // Cg
+                                py = h - padding + i + offset[b, h, w, g, k, 0]
+                                px = w - padding + j + offset[b, h, w, g, k, 1]
+                                acc += sample(b, py, px, c) * mask[b, h, w, g, k] * weight[i, j, c, o]
+                    out[b, h, w, o] = acc
+    if bias is not None:
+        out = out + np.asarray(bias, np.float64)
+    return torch.from_numpy(out)
 
 
 def hopper_envelope(dtype, C: int, O: int, G: int) -> bool:

@@ -7,12 +7,17 @@ from ``glare_tpu/options/options.py``).
   * ``dict_to_nonedict`` wraps every nested dict in :class:`NoneDict`, whose
     missing keys read as ``None`` so feature flags can be probed by indexing.
   * ``dict2str`` renders an option tree for the training log.
+  * ``save_opt`` writes an option tree as plain YAML.
+  * ``check_resume`` points ``pretrain_model_G`` at the resume iteration's
+    ``{iter}_G`` when a state file is resumed.
 
-``yaml`` is imported inside :func:`parse`, not at package import.
+``yaml`` is imported inside :func:`parse` and :func:`save_opt`, not at package
+import.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import os.path as osp
 from collections import OrderedDict
@@ -112,3 +117,32 @@ def dict2str(opt, indent_l=1):
         else:
             msg += " " * (indent_l * 2) + k + ": " + str(v) + "\n"
     return msg
+
+
+def save_opt(opt, path):
+    """``opt`` (nested dicts, NoneDicts, lists, tuples) as block-style YAML of plain
+    dicts and lists at ``path``."""
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.dump(_plain(opt), f, default_flow_style=False)
+
+
+def _plain(o):
+    if isinstance(o, dict):
+        return {k: _plain(v) for k, v in o.items()}
+    if isinstance(o, (list, tuple)):
+        return [_plain(v) for v in o]
+    return o
+
+
+def check_resume(opt, resume_iter):
+    """With ``path.resume_state`` set, ``path.pretrain_model_G`` becomes
+    ``models/{resume_iter}_G`` (a pretrain path given beside it is ignored, with a
+    warning); reference: options.py:116-130."""
+    logger = logging.getLogger("base")
+    if opt["path"].get("resume_state"):
+        if opt["path"].get("pretrain_model_G") or opt["path"].get("pretrain_model_D"):
+            logger.warning("pretrain_model paths will be ignored when resuming training.")
+        opt["path"]["pretrain_model_G"] = osp.join(opt["path"]["models"], f"{resume_iter}_G")
+        logger.info("Set [pretrain_model_G] to %s", opt["path"]["pretrain_model_G"])

@@ -9,8 +9,10 @@ Runs on ``cuda`` unless ``--device cpu`` is given; with no GPU and no explicit
 ``--device cpu`` it raises. Kept from the JAX loop: resume (``--auto_resume``:
 the newest ``{iter}.state``; else ``path.resume_state``), the experiment tree
 under ``$GLARE_ROOT/experiments/<name>`` (an existing one is archived), the
-tensorboard logger (``logger.use_tb_logger``, not for ``debug`` names), the
-train / val loaders, the print / checkpoint / validation cadence
+tensorboard logger (``logger.use_tb_logger``, not for ``debug`` names) and, before
+it, the wandb run that syncs it (``logger.wandb.project``; without the wandb
+package a warning, and training goes on), the train / val loaders (prefetched
+under the train set's ``prefetch_mode``), the print / checkpoint / validation cadence
 (``logger.print_freq``, ``logger.save_checkpoint_freq``, ``val.val_freq``),
 best-PSNR snapshots, and a final save and validation. The final checkpoint is
 labelled with the updates made (``total_iter``).
@@ -42,7 +44,7 @@ from ..utils.util import natsorted
 from .data import build_dataloader, build_dataset
 from .models import build_model
 from .utils import AvgTimer, MessageLogger, get_env_info, parse_options
-from .utils.logger import init_tb_logger
+from .utils.logger import init_tb_logger, init_wandb_logger
 
 
 def load_resume_state(opt):
@@ -131,6 +133,8 @@ def train_pipeline(root_path=None, argv=None):
 
     tb_logger = None
     if main_rank and (opt.get("logger") or {}).get("use_tb_logger") and "debug" not in opt["name"]:
+        if (opt["logger"].get("wandb") or {}).get("project") is not None:
+            init_wandb_logger(opt)  # first, so that it can sync the tensorboard logs
         tb_logger = init_tb_logger(os.path.join(opt["path"]["experiments_root"], "tb_logger"))
 
     train_loader, train_sampler, val_loaders, total_epochs, total_iters = create_train_val_dataloader(

@@ -1,8 +1,9 @@
 """Training observability (the port's own copy of ``glare_tpu/sr/utils/logger.py``;
 reference: basicsr/utils/logger.py): :class:`AvgTimer`, :class:`MessageLogger`
 (epoch / iter / lr / time / eta, mirrored to tensorboard), the optional
-tensorboard writer and the environment banner. ``tensorboard`` is imported
-inside :func:`init_tb_logger`."""
+tensorboard writer, the optional wandb run that syncs it, and the environment
+banner. ``tensorboard`` and ``wandb`` are imported inside :func:`init_tb_logger`
+and :func:`init_wandb_logger`."""
 
 from __future__ import annotations
 
@@ -91,6 +92,31 @@ def init_tb_logger(log_dir):
             "text log only")
         return None
     return SummaryWriter(log_dir=log_dir)
+
+
+def init_wandb_logger(opt):
+    """Start a wandb run that syncs the tensorboard logs (reference: logger.py:126-143)
+    -> its id; ``logger.wandb.resume_id`` resumes that run. Without the wandb package
+    it logs the JAX package's warning and returns None: training goes on with
+    tensorboard only."""
+    logger = logging.getLogger("base")
+    try:
+        import wandb
+    except ImportError:
+        logger.warning("wandb logger requested (logger.wandb.project) but the wandb package is not "
+                       "installed; continuing with tensorboard only")
+        return None
+    project = opt["logger"]["wandb"]["project"]
+    resume_id = opt["logger"]["wandb"].get("resume_id")
+    if resume_id:
+        wandb_id, resume = resume_id, "allow"
+        logger.warning(f"Resume wandb logger with id={wandb_id}.")
+    else:
+        wandb_id, resume = wandb.util.generate_id(), "never"
+    wandb.init(id=wandb_id, resume=resume, name=opt["name"], config=opt, project=project,
+               sync_tensorboard=True)
+    logger.info(f"Use wandb logger with id={wandb_id}; project={project}.")
+    return wandb_id
 
 
 def get_env_info():

@@ -3,6 +3,8 @@ inference CLIs need from ``glare_tpu/utils/imgproc.py``).
 
   * BGR->RGB reads, reflect padding (``impad``), the log-domain transform
     ``log(clamp(x + 1e-3, 1e-3))``, per-channel histogram equalization.
+  * ``to_float01`` (uint8 -> float32 in [0, 1]), ``to_nhwc_batch`` (HWC -> 1HWC
+    float32) and ``from_nhwc_batch`` (1HWC or HWC -> HWC clipped to [0, 1]).
 
 ``cv2`` is imported inside the functions that use it, not at package import.
 """
@@ -60,6 +62,24 @@ def hiseq_color_cv2_img(img):
 def log_transform(x, eps=1e-3):
     """``log(clamp(x + eps, eps))`` on float arrays in [0, 1]."""
     return np.log(np.clip(np.asarray(x, np.float32) + eps, eps, None))
+
+
+def to_float01(img_uint8):
+    return np.asarray(img_uint8).astype(np.float32) / 255.0
+
+
+def to_nhwc_batch(img_hwc):
+    """HWC float -> 1HWC float32 batch."""
+    return np.expand_dims(np.asarray(img_hwc, np.float32), axis=0)
+
+
+def from_nhwc_batch(x):
+    """1HWC (or HWC) -> HWC numpy, clipped to [0, 1]. Takes numpy arrays and CPU
+    tensors."""
+    x = np.asarray(x)
+    if x.ndim == 4:
+        x = x[0]
+    return np.clip(x, 0.0, 1.0)
 
 
 def preprocess_padded(img_u8, top=0, bottom=0, left=0, right=0, apply_log=False, eps=1e-3):

@@ -1,5 +1,6 @@
 """Wall-clock timers of the training log (the port's own copy of
-``glare_tpu/utils/timer.py``; reference: code/utils/timer.py:17-62)."""
+``glare_tpu/utils/timer.py``; reference: code/utils/timer.py:17-62), and
+:class:`ScopeTimer`, which prints the seconds a ``with`` block took."""
 
 from __future__ import annotations
 
@@ -58,3 +59,20 @@ class TickTock:
 
     def get_last_iteration(self):
         return self.time_pairs[-1][1] - self.time_pairs[-1][0] if self.time_pairs else 0
+
+
+class ScopeTimer:
+    """``with ScopeTimer(name) as t:`` prints ``"{name} {seconds:.4f}s"`` when the
+    block ends (also when it raises) and keeps the seconds in ``t.dt``."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.time()
+        return self
+
+    def __exit__(self, *exc):
+        self.dt = time.time() - self.t0
+        print(f"{self.name} {self.dt:.4f}s")
+        return False

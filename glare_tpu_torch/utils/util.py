@@ -1,6 +1,7 @@
 """General utilities (the port's own copy of what inference and training need
 from ``glare_tpu/utils/util.py``): option probing, natural sort, experiment
-directories, the training logger, seeds and resume-state discovery."""
+directories, the training logger, seeds, resume-state discovery and a one-time
+tree copy."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import logging
 import os
 import random
 import re
+import shutil
 import sys
 from datetime import datetime
 
@@ -105,3 +107,9 @@ def get_resume_paths(opt):
             return state, state.replace("training_state", "models").replace(".state", "_G")
         return None, None
     return path.get("resume_state"), None
+
+
+def copy_tree_once(src, dst):
+    """Copy the directory ``src`` to ``dst`` unless ``dst`` exists."""
+    if not os.path.exists(dst):
+        shutil.copytree(src, dst)

@@ -14,7 +14,7 @@ import pytest
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PKG = os.path.join(ROOT, "glare_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "glare_tpu"}
-LAZY_ONLY = {"yaml", "cv2", "pandas", "triton", "lmdb", "tensorboard"}
+LAZY_ONLY = {"yaml", "cv2", "pandas", "triton", "lmdb", "tensorboard", "wandb"}
 
 
 def _sources():
@@ -93,7 +93,7 @@ def test_no_jax_and_nothing_of_the_jax_package(path):
     tree = ast.parse(open(path).read(), path)
     assert not (_imports(tree, top_level_only=False) & FORBIDDEN), path
     assert not (_imports(tree, top_level_only=True) & LAZY_ONLY), \
-        f"{path}: yaml/cv2/pandas/triton/lmdb/tensorboard must be imported inside the function that uses them"
+        f"{path}: yaml/cv2/pandas/triton/lmdb/tensorboard/wandb must be imported inside the function that uses them"
 
 
 def test_no_library_kernels_on_any_path_of_the_port():
@@ -110,7 +110,7 @@ def test_no_library_kernels_on_any_path_of_the_port():
 def test_import_every_module_without_optional_packages_or_gpu():
     code = r"""
 import importlib, os, pkgutil, sys
-for name in ("yaml", "cv2", "pandas", "triton", "lmdb", "tensorboard", "jax", "flax", "optax"):
+for name in ("yaml", "cv2", "pandas", "triton", "lmdb", "tensorboard", "wandb", "jax", "flax", "optax"):
     sys.modules[name] = None          # any import of these now raises ImportError
 os.environ["CUDA_VISIBLE_DEVICES"] = ""
 import glare_tpu_torch, torch
@@ -150,6 +150,15 @@ for name in ("flops_audit", "offset_histogram", "active_codebook", "profile_stag
              "train_offset_drive"):
     importlib.import_module("glare_tpu_torch.tools." + name)
     n += 1
+# the last gaps against the JAX package: the prefetching loader, the wandb hook, the helpers
+from glare_tpu_torch.data import PrefetchDataLoader
+from glare_tpu_torch.sr.utils.logger import init_wandb_logger
+from glare_tpu_torch.options import check_resume, save_opt
+from glare_tpu_torch.utils import ScopeTimer, copy_tree_once
+from glare_tpu_torch.utils.imgproc import from_nhwc_batch, to_float01, to_nhwc_batch
+from glare_tpu_torch.nn import ResBlockGN
+from glare_tpu_torch.ops.dcn import modulated_deform_conv_naive
+from glare_tpu_torch.convert import flax_to_torch_resblock_gn
 assert "glare_tpu" not in sys.modules and "jax" not in [k for k, v in sys.modules.items() if v is not None]
 print("imported", n)
 """
