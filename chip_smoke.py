@@ -5,20 +5,24 @@
 
 Phases, each printing one JSON line:
   device     the card (nvidia-smi name + power limit), torch / CUDA versions
-  build      compiles the six csrc/*.cu with nvcc (one process per source, all
+  build      compiles the seven csrc/*.cu with nvcc (one process per source, all
              started together; dcn_fwd.cu and dcn_bwd.cu include csrc/dcn_tap.cuh)
              and loads them; ptxas registers and spills of vq_argmin.cu,
-             attn_fused.cu, dcn_fwd.cu, dcn_bwd.cu and of the two Hopper sources
-             (attn_hopper.cu, dcn_hopper.cu), with their shared memory: a spill,
-             or warning C7515 (a serialized wgmma pipeline), fails the run
+             attn_fused.cu, dcn_fwd.cu, dcn_bwd.cu and of the three Hopper sources
+             (attn_hopper.cu, attn_hopper_f32.cu, dcn_hopper.cu), with their shared
+             memory: a spill, or warning C7515 (a serialized wgmma pipeline), fails
+             the run
   kernels    every hand-written kernel entry against its plain PyTorch version on
              the card, at the shapes the main path gives it and at small ragged
              shapes; times by CUDA events (median after a warm-up). Attention:
              the entry the wrapper picks for each case (hopper for bf16 C = 512,
-             wmma for other bf16 widths, f32), the wmma and f32 entries also
-             timed at the main shape (f32 also at two ragged shapes: n and
-             n_true not multiples of its 64-query tile, and C % 4 != 0), and
-             SDPA under each backend as the yardstick. DCN: the entry ops.dcn.route picks (hopper for the
+             wmma for other bf16 widths, hopper_f32 -- 3xTF32 on wgmma -- for
+             float32), the wmma entry also timed at the main shape; float32 at
+             the main shape and ragged shapes (n and n_true not multiples of the
+             64-query tile, C % 4 != 0) held to the plain version (5e-5) and to
+             a float64 dense oracle (at most F32_ORACLE_RATIO x the plain
+             version's own error), the earlier SIMT kernel (f32_simt) beside it
+             in turns; SDPA under each backend as the yardstick. DCN: the entry ops.dcn.route picks (hopper for the
              paths' bf16 widths, f32 -- the tiled float32 kernel -- for float32
              inside its envelope, the first kernel's wmma / f32_flat otherwise),
              the Hopper entry's edges (ragged tiles, B = 2, borders, corners
@@ -44,6 +48,13 @@ Phases, each printing one JSON line:
              two single-image requests and one batch of two through
              VQLLFLOWDModel.get_sr; launch counters per call; a stage-wise
              comparison of the kernel path against the plain-version path
+  f32_attn_path  main_path's network in float32, as cli/test_stages.py serves a
+             training conf (no inference_dtype): get_sr at 620x420 with its
+             AttnBlocks built under GLARE_ATTN_FUSED=1 (exactly 11 launches of
+             hopper_f32 a call, none of another attention entry) and without the
+             switch (the chunked path: no attention launch), in turns; ms per
+             image and peak memory both ways; each stage of the fused run held to
+             the chunked run on the same inputs (F32_STAGE_TOL, relative RMS)
   eval_path  on main_path's model, the per-image step of cli/infer_paired.py
              (prep, enhance_exact, measure_output) on two synthetic 600x400
              pairs: LPIPS from a seeded npz on the card against the CPU (and a
@@ -151,7 +162,8 @@ Phases, each printing one JSON line:
              contiguous parameters only; cuDNN picks other algorithms for them)
 Every path is driven with the launch counts (attention and DCN: one per entry,
 see counters()) set to 0 just before and read just after; every attention launch
-of an inference path must land on the hopper entry, every DCN launch on the
+of a bf16 inference path must land on the hopper entry (of f32_attn_path on
+hopper_f32), every DCN launch on the
 Hopper DCN entries (dcn_hopper, dcn_hopper_cascade with dcn_cascade_select).
 Then the contract lines: {"kernels": [...]}, the card line, and last
 {"ok": true, "device": {...}}. Any failure raises: non-zero exit, no last line.
@@ -208,6 +220,15 @@ N_TOK2 = (H2 // 4) * (W2 // 4)      # 15000 latent tokens
 # stages where both distances are near zero.
 STAGE_RATIO = 1.25
 STAGE_ABS_SLACK = 1e-3
+
+# float32 attention: the kernel's largest error against a float64 dense oracle
+# may be at most this factor times the plain float32 version's own error.
+F32_ORACLE_RATIO = 2.0
+# f32_attn_path: each stage of the fused (hopper_f32) run against the chunked run
+# on the same inputs, relative RMS: float32 rounding of two attention orders
+# spread by the network; a wrong kernel is off by the order of the values.
+F32_STAGE_TOL = 1e-4
+PEAK_TF32 = 495e12  # dense TF32 tensor-core rate (data sheet)
 
 
 T_START = time.time()
@@ -278,6 +299,7 @@ def phase_build():
         regs[name] = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln][:16]
     reports = {"vq_argmin": {"layout": vq_ops.layout(8192, 3)},
                "attn_hopper": {"smem_bytes": attn_ops.hopper_smem_bytes()},
+               "attn_hopper_f32": {"smem_bytes": attn_ops.hopper_f32_smem_bytes()},
                "attn_fused": {}, "dcn_fwd": {"f32_smem_bytes": {O: dcn_ops.f32_smem_bytes(O) for O in dcn_ops.F32_O}},
                "dcn_bwd": {},
                "dcn_hopper": {"smem_bytes": {O: dcn_ops.hopper_smem_bytes(O) for O in (128, 256)}}}
@@ -486,7 +508,9 @@ def check_attn():
     summation order and exp2 rounding, i.e. by last-bit flips of the bf16
     probabilities and output: 2^-7 of the largest output (one to two bf16 ulps);
     4x that against a float64 dense oracle on 64 queries. float32: 5e-5 (exp2f
-    vs torch.exp2 and the order of sums)."""
+    vs torch.exp2 and the order of sums), and against a float64 dense oracle
+    (every query row) at most F32_ORACLE_RATIO x the plain version's own error:
+    float32 means float32, so 3xTF32 must be as good as float32."""
     require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on: the float32 plain version would not be")
     rng = np.random.default_rng(1)
     cases = {}
@@ -505,6 +529,15 @@ def check_attn():
         tol = tl if tl is not None else 2.0 ** -7 * float(w.abs().max())
         cases[tag] = {"entry": want_entry, "max_abs_err": err, "tol": tol}
         require(err <= tol, f"attn {tag}: {err} > {tol}")
+        if q.dtype == torch.float32:  # against the float64 oracle, beside the plain version
+            oracle = _dense_f64(q[:, :nt], k, v, nt)
+            e_kernel, e_plain = (float((o[:, :nt].double() - oracle).abs().max()) for o in (got, want))
+            cases[tag].update(oracle_err=e_kernel, plain_oracle_err=e_plain,
+                              oracle_ratio=e_kernel / max(e_plain, 1e-30))
+            if want_entry == "hopper_f32":
+                require(e_kernel <= F32_ORACLE_RATIO * e_plain,
+                        f"attn {tag}: {e_kernel:.3e} from the float64 oracle, more than "
+                        f"{F32_ORACLE_RATIO} x the plain version's {e_plain:.3e}")
         return got, w, tol
 
     # main-path shape: one image's 16275 tokens padded to 16384, C = 512, bf16
@@ -551,14 +584,22 @@ def check_attn():
     b_ms, b_by = bound(flops, PEAK_BF16, 2.0 * 4 * N_TOK * 512)
     del q, k, v, got, w
     torch.cuda.empty_cache()
-    # the float32 entry at the main shape, for its error and time
+    # float32 at the main shape: the 3xTF32 entry and the earlier SIMT kernel, each
+    # against the plain version and the float64 oracle, timed in turns
     q, k, v = [dev(rng.standard_normal((1, N_PAD, 512)).astype(np.float32)) for _ in range(3)]
-    _, w32, _ = compare("float32[1,16384,512] n_true=16275", q, k, v, N_TOK, None, 5e-5)
-    f32_ms = time_ms(lambda: attn_ops.flash_attention_nhc_cuda(q, k, v, n_true=N_TOK), reps=5, warmup=1)
+    main32 = "float32[1,16384,512] n_true=16275"
+    _, w32, _ = compare(main32, q, k, v, N_TOK, None, 5e-5)
+    compare(main32 + ", f32_simt entry", q, k, v, N_TOK, "f32_simt", 5e-5)
+    f32_turns = [time_ms(lambda: attn_ops.flash_attention_nhc_cuda(q, k, v, n_true=N_TOK, entry=e),
+                         reps=5, warmup=1) for e in ("hopper_f32", "f32_simt", "f32_simt", "hopper_f32")]
+    f32_ms, simt_ms = statistics.median(f32_turns[0::3]), statistics.median(f32_turns[1:3])
     f32_plain = time_ms(lambda: attn_ops.flash_attention_nhc_ref(q, k, v, n_true=N_TOK), reps=3, warmup=1)
     sdpa32 = _sdpa_by_backend(q, k, v, N_TOK, w32)
     acc32 = {name: r["ms"] for name, r in sdpa32.items() if "ms" in r}
-    f32_b_ms, f32_b_by = bound(flops, PEAK_F32, 4.0 * 4 * N_TOK * 512)
+    # two bounds: the float32 function on the float32 units, and the three TF32
+    # products of each multiply-add on the tensor cores (the kernel's operations)
+    f32_units_ms, f32_units_by = bound(flops, PEAK_F32, 4.0 * 4 * N_TOK * 512)
+    tf32x3_ms, tf32x3_by = bound(3 * flops, PEAK_TF32, 4.0 * 4 * N_TOK * 512)
     del q, k, v, w32
     torch.cuda.empty_cache()
     main = "bf16[1,16384,512] n_true=16275"
@@ -576,14 +617,43 @@ def check_attn():
             "note": "the first kernel's bf16 entry, timed at the main shape through entry='wmma'; "
                     "the paths launch it for no call",
             "cases": {t: c for t, c in cases.items() if c.get("entry") == "wmma"}}
-    f32 = {"name": "attn_f32", "source": "glare_tpu_torch/csrc/attn_fused.cu", **common,
-           "max_abs_err": cases["float32[1,16384,512] n_true=16275"]["max_abs_err"], "ms": f32_ms,
-           "plain_ms": f32_plain, "bound_ms": f32_b_ms, "bound_by": f32_b_by,
-           "library_ms": min(acc32.values()) if acc32 else None, "sdpa_by_backend": sdpa32,
-           "note": "float32 inputs at the main shape; bound by the float32 units (no tensor cores, "
-                   "TF32 off); the paths launch it for no call", "achieved_tflops": flops / f32_ms / 1e9,
-           "cases": {t: c for t, c in cases.items() if c.get("entry") == "f32"}}
-    return hopper, wmma, f32
+    lib32 = min(acc32.values()) if acc32 else None
+    f32_common = {"plain_ms": f32_plain, "library_ms": lib32, "sdpa_by_backend": sdpa32,
+                  "bound_f32_units_ms": f32_units_ms, "bound_tf32x3_ms": tf32x3_ms,
+                  "f32_turns_ms": [list(p) for p in zip(("hopper_f32", "f32_simt", "f32_simt", "hopper_f32"),
+                                                         f32_turns)]}
+    common32 = {**common, "replaces": "glare_tpu/ops/attn_pallas.py:44",
+                "tol": f"5e-5 against the plain version; against a float64 dense oracle at most "
+                       f"{F32_ORACLE_RATIO} x the plain version's error"}
+    f32 = {"name": "attn_f32", "source": "glare_tpu_torch/csrc/attn_hopper_f32.cu", **common32,
+           "max_abs_err": cases[main32]["max_abs_err"], "ms": f32_ms, "f32_simt_ms": simt_ms,
+           "bound_ms": tf32x3_ms, "bound_by": tf32x3_by, **f32_common,
+           "oracle_err": cases[main32]["oracle_err"], "plain_oracle_err": cases[main32]["plain_oracle_err"],
+           "note": "entry hopper_f32 (3xTF32 on wgmma) at the main shape; bound_ms: the three TF32 "
+                   "products at 495 TFLOP/s (bound_f32_units_ms: the function on the 67 TFLOP/s "
+                   "float32 units); f32_attn_path launches it",
+           "achieved_tflops": flops / f32_ms / 1e9,
+           "cases": {t: c for t, c in cases.items() if c.get("entry") == "hopper_f32"}}
+    simt = {"name": "attn_f32_simt", "source": "glare_tpu_torch/csrc/attn_fused.cu", **common32,
+            "max_abs_err": cases[main32 + ", f32_simt entry"]["max_abs_err"], "ms": simt_ms,
+            "bound_ms": f32_units_ms, "bound_by": f32_units_by, **f32_common,
+            "oracle_err": cases[main32 + ", f32_simt entry"]["oracle_err"],
+            "note": "the earlier float32 kernel (float32 units, entry f32_simt), timed in turns with "
+                    "hopper_f32; no path launches it", "achieved_tflops": flops / simt_ms / 1e9,
+            "cases": {t: c for t, c in cases.items() if c.get("entry") == "f32_simt"}}
+    return hopper, wmma, f32, simt
+
+
+def _dense_f64(q, k, v, nt, rows=2048):
+    """softmax(q k^T / sqrt(C)) v over the first nt keys in float64, from the
+    unscaled inputs, a block of query rows at a time -> [B, n, C] float64."""
+    c = q.shape[-1]
+    kt, vv = k[:, :nt].double().transpose(1, 2), v[:, :nt].double()
+    out = []
+    for r0 in range(0, q.shape[1], rows):
+        s = (q[:, r0:r0 + rows].double() @ kt) * c ** -0.5
+        out.append(torch.softmax(s, dim=-1) @ vv)
+    return torch.cat(out, dim=1)
 
 
 def _dcn_inputs(rng, B, H, W, C, G, O, dtype, spread, edges=False):
@@ -1530,7 +1600,8 @@ def counters():
     require(sum(bwd.values()) == dcn_ops.bwd_launches,
             f"DCN backward counts disagree: {dcn_ops.bwd_launches} launches, by kernel {bwd}")
     return {"vq_argmin": vq_ops.launches, "attn_hopper": by_entry["hopper"],
-            "attn_wmma": by_entry["wmma"], "attn_f32": by_entry["f32"],
+            "attn_wmma": by_entry["wmma"], "attn_f32": by_entry["hopper_f32"],
+            "attn_f32_simt": by_entry["f32_simt"],
             "dcn_hopper": dcn["hopper"], "dcn_fwd": dcn["wmma"] + dcn["f32_flat"], "dcn_fwd_f32": dcn["f32"],
             "dcn_hopper_cascade": cas["hopper"],
             "dcn_cascade_fwd": cas["wmma"] + cas["f32"] + cas["f32_flat"],
@@ -1863,7 +1934,8 @@ def phase_hybrid_path():
     moved = moved_since(before)
     dcn_on_hopper_only(moved, "the request after the audit")
     require(moved["dcn_hopper"] + moved["dcn_hopper_cascade"] == 2 * n_calls[0]
-            and moved["attn_hopper"] == 11 * n_calls[0] and moved["attn_wmma"] == moved["attn_f32"] == 0
+            and moved["attn_hopper"] == 11 * n_calls[0]
+            and moved["attn_wmma"] == moved["attn_f32"] == moved["attn_f32_simt"] == 0
             and bool(torch.isfinite(sr).all()),
             f"request under the audited configuration: {moved} over {n_calls[0]} get_sr calls")
     require(ov == {"overflow_blocks": 0, "taps_beyond_tail": 0},
@@ -1881,6 +1953,93 @@ def phase_hybrid_path():
           "stage_vs_plain": stages,
           "stage_tol": f"kernel_vs_f32 <= {STAGE_RATIO} * plain_vs_f32 + {STAGE_ABS_SLACK}",
           "auto_configure_dcn": audit})
+    return path_counts
+
+
+def phase_f32_attn_path():
+    """main_path's network in float32, as cli/test_stages.py serves a training
+    conf (no inference_dtype): VQLLFLOWDModel.get_sr at 620x420 with the
+    AttnBlocks built under GLARE_ATTN_FUSED=1 (each block over 8192 tokens on
+    hopper_f32) and without it (the chunked path), same seeded weights, in turns."""
+    from glare_tpu_torch.models import create_model
+    from glare_tpu_torch.models.vqllflowd_model import temper_offset_heads
+
+    opt = lol_opt()
+    opt.pop("inference_dtype")   # the compute dtype falls back to float32
+    models, saved = {}, os.environ.get("GLARE_ATTN_FUSED")
+    try:
+        for name, switch in (("fused", "1"), ("chunked", None)):
+            if switch is None:
+                os.environ.pop("GLARE_ATTN_FUSED", None)
+            else:
+                os.environ["GLARE_ATTN_FUSED"] = switch
+            m = create_model(opt, device="cuda")
+            temper_offset_heads(m.netG, seed=7, std=0.02)
+            require(m.dtype == torch.float32, f"the {name} model computes in {m.dtype}")
+            models[name] = m
+    finally:
+        if saved is None:
+            os.environ.pop("GLARE_ATTN_FUSED", None)
+        else:
+            os.environ["GLARE_ATTN_FUSED"] = saved
+    attn_rows = ("attn_hopper", "attn_wmma", "attn_f32", "attn_f32_simt")
+    lq = dev(seeded_image(0))
+    for m in models.values():   # warm-up (cuDNN, allocator), not counted
+        m.get_sr(lq)
+    torch.cuda.synchronize()
+
+    reset_counters()
+    calls = {"fused": [], "chunked": []}
+    for turn in ("fused", "chunked", "chunked", "fused"):
+        torch.cuda.reset_peak_memory_stats()
+        before = counters()
+        sr, ms = sync_ms(lambda: models[turn].get_sr(lq))
+        moved = moved_since(before)
+        want = {k: 0 for k in attn_rows}
+        want["attn_f32"] = 11 if turn == "fused" else 0
+        require({k: moved[k] for k in attn_rows} == want,
+                f"f32_attn_path {turn}: attention launches {moved}, want {want}")
+        require(tuple(sr.shape) == (1, H_IN, W_IN, 3) and bool(torch.isfinite(sr).all()),
+                f"f32_attn_path {turn}: get_sr output {tuple(sr.shape)}, or not finite")
+        calls[turn].append({"ms_per_image": ms, "launches": moved,
+                            "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    path_counts = counters()
+
+    # each stage of the fused run against the chunked run, both fed the fused
+    # run's inputs (so the codebook sees the same latent)
+    mf, mc = models["fused"], models["chunked"]
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return float(((a - b) ** 2).mean().sqrt()) / max(float((b ** 2).mean().sqrt()), 1e-30)
+
+    with torch.inference_mode():
+        x_nchw = lq.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        x, lr_enc = mf.netG.latent_half(x_nchw)
+        x_c, lr_enc_c = mc.netG.latent_half(x_nchw)
+        dec, _, code_out = mf.net_hq.decode(x)
+        idx_f = mf.net_hq.quantize.last_indices.clone()
+        dec_c, _, code_out_c = mc.net_hq.decode(x)
+        idx_c = mc.net_hq.quantize.last_indices.clone()
+        rec = mf.netG.aft_half(x, code_out, lr_enc["mid_feat"])
+        rec_c = mc.netG.aft_half(x, code_out, lr_enc["mid_feat"])
+        torch.cuda.synchronize()
+    stages = {"latent_half.x": rel(x, x_c),
+              "latent_half.cond_feat": rel(lr_enc["cond_feat"], lr_enc_c["cond_feat"]),
+              "vq_decode.dec": rel(dec, dec_c), "vq_decode.tap0": rel(code_out[0], code_out_c[0]),
+              "vq_decode.tap1": rel(code_out[1], code_out_c[1]), "aft_half.rec": rel(rec, rec_c)}
+    require(bool((idx_f == idx_c).all()), "f32_attn_path: the two models quantize one latent differently")
+    for name, d in stages.items():
+        require(math.isfinite(d) and d <= F32_STAGE_TOL,
+                f"f32_attn_path stage {name}: fused run {d:.3e} (relative RMS) from the chunked run, "
+                f"bar {F32_STAGE_TOL}")
+    ms = {k: [c["ms_per_image"] for c in v] for k, v in calls.items()}
+    emit({"phase": "f32_attn_path", "config": "confs/LOL.yml widths, float32 (no inference_dtype), "
+          "dcn_impl=pallas R=2", "input": [H_IN, W_IN], "calls": calls, "ms_per_image": ms,
+          "fused_minus_chunked_ms": statistics.median(ms["fused"]) - statistics.median(ms["chunked"]),
+          "launches_total": path_counts, "stage_fused_vs_chunked": stages,
+          "stage_tol": f"relative RMS <= {F32_STAGE_TOL}"})
+    del models, mf, mc
     return path_counts
 
 
@@ -4539,14 +4698,16 @@ def phase_profile(fn, what):
 
 # the path whose count a kernel's "launches" reports (and on which it must have
 # run); None: an entry that no path launches, reported with the main path's 0
-PATHS = {"vq_argmin": "main_path", "attn_hopper": "main_path", "attn_wmma": None, "attn_f32": None,
+PATHS = {"vq_argmin": "main_path", "attn_hopper": "main_path", "attn_wmma": None,
+         "attn_f32": "f32_attn_path", "attn_f32_simt": None,
          "dcn_hopper": "main_path", "dcn_fwd": None, "dcn_fwd_f32": "train_path", "dcn_bwd": "train_path",
          "dcn_hopper_cascade": "hybrid_path",
          "dcn_cascade_select": "hybrid_path", "dcn_cascade_fwd": None,
          "dcn_bwd_bf16": "train_path_bf16", "dcn_hopper_train": "train_path_bf16"}
 # a row whose launches are another row's counter (the same entry on another path)
 COUNTER_OF = {"dcn_hopper_train": "dcn_hopper"}
-ALL_PHASES = ("device,build,kernels,main_path,eval_path,hybrid_path,gather_path,flow_path,stage2_path,"
+ALL_PHASES = ("device,build,kernels,main_path,eval_path,hybrid_path,gather_path,flow_path,f32_attn_path,"
+              "stage2_path,"
               "train_path,train_path_bf16,train_stage2_path,train_stage1_path,train_stage1_lq_path,"
               "haze_lq_path,swinir_path,degradation_path,legacy_path,tools_path,dp_path")
 
@@ -4588,6 +4749,9 @@ def main():
         torch.cuda.empty_cache()
     if "flow_path" in phases:
         counts["flow_path"] = phase_flow_path()
+        torch.cuda.empty_cache()
+    if "f32_attn_path" in phases:
+        counts["f32_attn_path"] = phase_f32_attn_path()
         torch.cuda.empty_cache()
     if "stage2_path" in phases:
         counts["stage2_path"] = phase_stage2_path()
@@ -4666,7 +4830,8 @@ def main():
         if k["name"] == "dcn_hopper" and gather_tail is not None:
             k["gather_path_tail"] = gather_tail   # the torch-op tail beside its base pass (this row)
     extras = ("library_call", "library_note", "kernel_ms", "smem_bytes", "sdpa_by_backend",
-              "bound_with_round_trips_ms", "old_design_ms", "gather_path_tail")
+              "bound_with_round_trips_ms", "old_design_ms", "gather_path_tail", "f32_simt_ms",
+              "bound_f32_units_ms", "bound_tf32x3_ms", "oracle_err", "plain_oracle_err", "f32_turns_ms")
     emit({"kernels": [{**{key: k[key] for key in keys}, **{key: k[key] for key in extras if key in k}}
                       for k in kernels]})
     emit({"seconds": round(time.time() - t_start, 1)})

@@ -23,7 +23,7 @@ from typing import Any, List
 
 import numpy as np
 
-from ..utils.imgproc import hiseq_color_cv2_img
+from ..utils.imgproc import hiseq_color_cv2_img, random_resize  # noqa: F401  (one of this module's names in JAX)
 
 
 def _imread_rgb(path):
@@ -33,12 +33,6 @@ def _imread_rgb(path):
     if img is None:
         raise IOError(f"cannot read {path}")
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-
-
-def random_resize(img, scale_factor=1.0):
-    import cv2
-
-    return cv2.resize(img, None, fx=scale_factor, fy=scale_factor, interpolation=cv2.INTER_CUBIC)
 
 
 def paired_random_crop(hr, lr, his, gt_patch_size, scale=1):

@@ -70,6 +70,11 @@ class VectorQuantizer2(nn.Module):
         return z_q.reshape(shape) if shape is not None else z_q
 
 
+# The reference's legacy ``VectorQuantizer`` (its beta bug included) is
+# VectorQuantizer2 with legacy=True: the JAX package names it so, and so here.
+VectorQuantizer = VectorQuantizer2
+
+
 class WeightedVectorQuantizer(nn.Module):
     """RIDCP weighted VQ (reference: dehaze_vq_weight_arch.py:24-131).
 

@@ -14,7 +14,10 @@ is ``[B, N, C]`` in q's dtype.
     ``hopper`` (``csrc/attn_hopper.cu``: TMA + wgmma, warp-specialised; bf16,
     C = 512, every attention block of the model), ``wmma``
     (``csrc/attn_fused.cu``: other bf16 widths, C % 16 == 0, C <= 512) and
-    ``f32`` (``csrc/attn_fused.cu``: float32).
+    ``hopper_f32`` (``csrc/attn_hopper_f32.cu``: float32, any C <= 512, every
+    product 3xTF32 on wgmma after a split pass). ``f32_simt``
+    (``csrc/attn_fused.cu``: the earlier float32 kernel on the float32 units)
+    is taken only when named.
   * :func:`flash_attention_nhc` -- dispatch by where the tensors lie: CUDA
     tensors launch a kernel (or raise), CPU tensors take the plain version.
     The kernels have no backward: with grad enabled, an input that requires
@@ -22,7 +25,8 @@ is ``[B, N, C]`` in q's dtype.
     reaches them (at the training crop every block is dense, ``nn/layers.py``).
 
 What bounds the kernels on an H100: tensor-core operations, ``4*B*N*N*C``
-FLOP; the design notes are in the CUDA sources.
+FLOP (three times that in TF32 for ``hopper_f32``); the design notes are in
+the CUDA sources.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ import torch
 from . import _build
 
 launches = 0  # +1 per kernel launch (any entry), nowhere else
-launches_by_entry = {"hopper": 0, "wmma": 0, "f32": 0}  # +1 per launch of that entry
+launches_by_entry = {"hopper": 0, "wmma": 0, "hopper_f32": 0, "f32_simt": 0}  # +1 per launch of that entry
+F32_ENTRIES = ("hopper_f32", "f32_simt")  # the entries that take float32 inputs
 
 HOPPER_C = 512  # the one head dimension the Hopper entry serves
 
@@ -75,14 +80,17 @@ _entries = None
 
 
 def _kernels() -> dict:
-    """entry name -> ctypes function (all three share one C signature)."""
+    """entry name -> ctypes function. One C signature (q, k, v, out, B, n,
+    n_true, C, stream); ``hopper_f32`` takes a scratch pointer before the stream."""
     global _entries
     if _entries is None:
         fused, hopper = _build.load("attn_fused"), _build.load("attn_hopper")
+        hopper32 = _build.load("attn_hopper_f32")
         entries = {"hopper": hopper.attn_hopper_bf16, "wmma": fused.attn_fused_bf16,
-                   "f32": fused.attn_fused_f32}
-        for fn in entries.values():
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                   "hopper_f32": hopper32.attn_hopper_f32, "f32_simt": fused.attn_fused_f32}
+        for name, fn in entries.items():
+            scratch = [ctypes.c_void_p] if name == "hopper_f32" else []
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + scratch + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _entries = entries
     return _entries
@@ -95,10 +103,26 @@ def hopper_smem_bytes() -> int:
     return int(lib.attn_hopper_smem_bytes())
 
 
+def hopper_f32_smem_bytes() -> int:
+    """Dynamic shared memory a block of the float32 Hopper entry asks for."""
+    lib = _build.load("attn_hopper_f32")
+    lib.attn_hopper_f32_smem_bytes.restype = ctypes.c_int
+    return int(lib.attn_hopper_f32_smem_bytes())
+
+
+def hopper_f32_scratch_bytes(b: int, n: int) -> int:
+    """Device scratch the float32 Hopper entry needs for b images of n tokens
+    (big and small parts of q, k and v^T, written by its split pass)."""
+    fn = _build.load("attn_hopper_f32").attn_hopper_f32_scratch_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return int(fn(b, n))
+
+
 def route(q: torch.Tensor) -> str:
     """The kernel entry a CUDA call with q's dtype and head dimension takes."""
     if q.dtype == torch.float32:
-        return "f32"
+        return "hopper_f32"
     if q.shape[-1] == HOPPER_C:
         return "hopper"
     return "wmma"
@@ -106,8 +130,10 @@ def route(q: torch.Tensor) -> str:
 
 def flash_attention_nhc_cuda(q, k, v, n_true: Optional[int] = None, entry: Optional[str] = None):
     """Launches the kernel entry ``route(q)`` picks; ``entry`` names another
-    one that takes these inputs (the earlier ``wmma`` kernel at C = 512, to time
-    the two side by side)."""
+    one that takes these inputs (the earlier ``wmma`` kernel at C = 512, or
+    ``f32_simt`` for float32, to time the two side by side). ``hopper_f32``
+    runs its split pass and its attention kernel in one launch of the entry,
+    into a scratch buffer allocated here."""
     global launches
     _build.refuse_grad("flash_attention_nhc_cuda", q, k, v)
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
@@ -126,7 +152,7 @@ def flash_attention_nhc_cuda(q, k, v, n_true: Optional[int] = None, entry: Optio
         raise ValueError(f"head dimension {c} not supported by the kernel "
                          "(at most 512; a multiple of 16 for bfloat16)")
     entry = route(q) if entry is None else entry
-    if entry not in launches_by_entry or (entry == "f32") != (q.dtype == torch.float32) \
+    if entry not in launches_by_entry or (entry in F32_ENTRIES) != (q.dtype == torch.float32) \
             or (entry == "hopper" and c != HOPPER_C):
         raise ValueError(f"entry {entry!r} does not take {q.dtype} inputs with C = {c}")
     qs = _scale_q(q).contiguous()
@@ -137,8 +163,12 @@ def flash_attention_nhc_cuda(q, k, v, n_true: Optional[int] = None, entry: Optio
     out = torch.empty_like(qs)
     fn = _kernels()[entry]
     with torch.cuda.device(q.device):
+        scratch = []
+        if entry == "hopper_f32":
+            buf = torch.empty(hopper_f32_scratch_bytes(b, n) // 4, dtype=torch.float32, device=q.device)
+            scratch = [buf.data_ptr()]
         err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, n_true, c,
-                 torch.cuda.current_stream().cuda_stream)
+                 *scratch, torch.cuda.current_stream().cuda_stream)
     _build.check(err, fn.__name__)
     launches += 1
     launches_by_entry[entry] += 1

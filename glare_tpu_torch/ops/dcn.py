@@ -444,6 +444,37 @@ def modulated_deform_conv(x, offset, mask, weight, bias=None, max_offset=None,
     return (out, overflow) if return_overflow else out
 
 
+def modulated_deform_conv_chain(x, offset, mask, weight, bias=None, max_offset=2):
+    """Clamped-offset DCNv2, the training formulation of the JAX package
+    (``glare_tpu/ops/dcn.py:modulated_deform_conv_chain``): offsets clamped to
+    one radius, ``[-max_offset, max_offset]``; 3x3, stride 1, dilation 1. It is
+    :func:`modulated_deform_conv` with that uniform clamp (on the card the
+    kernel, differentiable through the DCN autograd Function; on the CPU the
+    plain version), which ``DCNv2Pack``'s ``'chain'`` impl runs.
+
+    Off the integer grid its gradient is the JAX op's. At integer offsets it is
+    not: the JAX op differentiates the ``jnp.abs`` / ``jnp.maximum`` of its hat
+    functions there, whose slopes do not sum to the DCNv2 derivative (3.54
+    against 0 on a constant image with zero offsets); this one gives the DCNv2
+    derivative, as the exact op does (ROADMAP.md, reference-side caveats)."""
+    return modulated_deform_conv(x, offset, mask, weight, bias, max_offset=int(max_offset))
+
+
+def deform_conv(x, offset, weight, bias=None, stride=1, padding=1, dilation=1):
+    """DCNv1 (no modulation): :func:`modulated_deform_conv`, exact offsets, with a
+    mask of ones (``glare_tpu/ops/dcn.py:deform_conv``). The port's op is 3x3 with
+    stride 1, padding 1 and dilation 1; the JAX op's other strides, paddings and
+    dilations raise here."""
+    if (stride, padding, dilation) != (1, 1, 1):
+        raise NotImplementedError(
+            f"deform_conv: stride={stride}, padding={padding}, dilation={dilation} is not "
+            "ported (only 1, 1, 1, the 3x3 'same' convolution every DCN of the model uses)")
+    B, H, W = x.shape[:3]
+    G, K = offset.shape[3], offset.shape[4]
+    mask = torch.ones((B, H, W, G, K), dtype=torch.float32, device=x.device)
+    return modulated_deform_conv(x, offset, mask, weight, bias)
+
+
 # ------------------------------------------------------------- the backward --
 
 def _dcn_grad_dtype(x):

@@ -41,6 +41,13 @@ def impad(img, top=0, bottom=0, left=0, right=0):
     return np.pad(img, [(top, bottom), (left, right), (0, 0)], "reflect")
 
 
+def random_resize(img, scale_factor=1.0):
+    """Bicubic resize of an HWC image by ``scale_factor`` (cv2.INTER_CUBIC)."""
+    import cv2
+
+    return cv2.resize(img, None, fx=scale_factor, fy=scale_factor, interpolation=cv2.INTER_CUBIC)
+
+
 def auto_padding(img, times=16):
     """Reflect-pad HWC (edge pixel repeated, as ``cv2.BORDER_REFLECT``) to a
     multiple of ``times``; returns (padded, [h1, h2, w1, w2]). An image that is

@@ -137,6 +137,31 @@ def test_plain_backward_bf16_by_the_ratio_rule():
         assert d_port <= 1.25 * d_jax + 1e-3, (name, d_port, d_jax)
 
 
+def test_public_chain_op_matches_jax_forward_and_off_grid_gradient():
+    """``ops.dcn.modulated_deform_conv_chain``, the port's name for the JAX chain
+    op: its forward at 16x16 (one jit of the JAX forward) and, off the integer
+    grid, the gradient of every input through autograd (the compiled vjp above)."""
+    rng = np.random.RandomState(9)
+    B, H, W, C, O, G = 1, 16, 16, 8, 5, 4
+    fwd = [rng.standard_normal((B, H, W, C)), 1.6 * rng.standard_normal((B, H, W, G, 9, 2)),
+           rng.uniform(0.0, 1.0, (B, H, W, G, 9)), 0.2 * rng.standard_normal((3, 3, C, O)),
+           rng.standard_normal((O,))]
+    fwd = [a.astype(np.float32) for a in fwd]
+    want = np.asarray(jax.jit(lambda *a: jax_chain(*a, max_offset=2))(*map(jnp.asarray, fwd)))
+    got = dcn_ops.modulated_deform_conv_chain(*map(torch.from_numpy, fwd), max_offset=2).numpy()
+    _close(got, want, "forward")
+
+    args, g_out = _inputs(seed=2, off_scale=1.6)
+    off = args[1]
+    off[np.abs(off - np.round(off)) < 1e-3] += 0.01   # keep every sample off the grid
+    want = _jax_grads(jax_chain, args, g_out, max_offset=2)
+    t = [torch.tensor(a, requires_grad=True) for a in args]
+    out = dcn_ops.modulated_deform_conv_chain(*t, max_offset=2)
+    out.backward(torch.tensor(g_out))
+    for name, a, w in zip(NAMES, t, want):
+        _close(a.grad.numpy(), w, name)
+
+
 def test_chain_caveat_at_zero_offsets():
     """At offsets exactly 0 the chain op's offset gradient is not the DCNv2
     derivative; the port's equals the xla op's."""

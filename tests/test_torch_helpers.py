@@ -11,7 +11,12 @@ package ``sr.train`` logs the JAX package's warning, makes its tensorboard
 logger and trains. The helpers: ``options.save_opt`` / ``check_resume``,
 ``utils.timer.ScopeTimer``, ``nn.ResBlockGN`` through ``convert`` (1e-5 of the
 output's largest), the float64 DCN loop oracle (1e-12), ``utils.imgproc``'s
-batch helpers and ``utils.util.copy_tree_once``.
+batch helpers and ``utils.util.copy_tree_once``; the names the port lacked until
+then: ``ops.dcn.deform_conv`` (1e-5 of the output's largest; the strides, paddings
+and dilations the port's op does not take raise), the ``modules.quantize.VectorQuantizer``
+alias (the same class on both sides; a forward through it, bit-equal indices and
+1e-6 of the output) and ``utils.imgproc.random_resize`` (bit-equal). The chain
+op is held in ``tests/test_torch_dcn_bwd.py``, beside its compiled vjp.
 """
 
 import logging
@@ -29,6 +34,8 @@ import yaml
 
 from glare_tpu.data import loader as jax_loader
 from glare_tpu.nn.layers import ResBlockGN as JResBlockGN
+from glare_tpu.modules import quantize as jax_quantize
+from glare_tpu.ops.dcn import deform_conv as jax_deform_conv
 from glare_tpu.ops.dcn import modulated_deform_conv_naive as jax_naive
 from glare_tpu.options import options as jax_options
 from glare_tpu.sr.data import build_dataloader as jax_build_dataloader
@@ -38,7 +45,8 @@ from glare_tpu.utils import util as jax_util
 from glare_tpu_torch import convert
 from glare_tpu_torch.data.loader import DataLoader, PrefetchDataLoader
 from glare_tpu_torch.nn import ResBlockGN
-from glare_tpu_torch.ops.dcn import modulated_deform_conv_naive
+from glare_tpu_torch.modules import quantize
+from glare_tpu_torch.ops.dcn import deform_conv, modulated_deform_conv_naive
 from glare_tpu_torch.options import options
 from glare_tpu_torch.parallel.mesh import EnlargedSampler
 from glare_tpu_torch.sr.data import build_dataloader
@@ -295,3 +303,46 @@ def test_copy_tree_once_matches_jax(tmp_path):
         fn(str(src), str(dst))                       # exists: not copied again
         assert (dst / "sub" / "a.txt").read_text() == "one"
         (src / "sub" / "a.txt").write_text("one")
+
+
+def test_deform_conv_matches_jax_and_refuses_other_geometry():
+    rng = np.random.default_rng(6)
+    B, H, W, C, G, O = 1, 16, 16, 8, 4, 6
+    x = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    offset = (1.5 * rng.standard_normal((B, H, W, G, 9, 2))).astype(np.float32)
+    weight = (0.2 * rng.standard_normal((3, 3, C, O))).astype(np.float32)
+    bias = rng.standard_normal(O).astype(np.float32)
+    want = np.asarray(jax_deform_conv(*map(jnp.asarray, (x, offset, weight, bias))))
+    got = deform_conv(*map(torch.from_numpy, (x, offset, weight, bias))).numpy()
+    assert got.shape == want.shape == (B, H, W, O)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    for kw in ({"stride": 2}, {"padding": 0}, {"dilation": 2}):
+        with pytest.raises(NotImplementedError):
+            deform_conv(*map(torch.from_numpy, (x, offset, weight)), **kw)
+
+
+def test_vector_quantizer_alias_matches_jax():
+    assert quantize.VectorQuantizer is quantize.VectorQuantizer2
+    assert jax_quantize.VectorQuantizer is jax_quantize.VectorQuantizer2
+    rng = np.random.default_rng(7)
+    z = rng.standard_normal((2, 3, 16, 16)).astype(np.float32)   # NCHW, as the port takes it
+    codebook = rng.standard_normal((64, 3)).astype(np.float32)
+    jvq = jax_quantize.VectorQuantizer(n_e=64, e_dim=3, backend="ref")
+    zq_j, loss_j, (_, _, idx_j) = jvq.apply({"params": {"embedding": jnp.asarray(codebook)}},
+                                            jnp.asarray(z.transpose(0, 2, 3, 1)))
+    vq = quantize.VectorQuantizer(n_e=64, e_dim=3)
+    vq.embedding.weight.data.copy_(torch.from_numpy(codebook))
+    with torch.no_grad():
+        zq, loss, (_, _, idx) = vq(torch.from_numpy(z))
+    assert np.array_equal(idx.numpy().reshape(-1), np.asarray(idx_j).reshape(-1))
+    assert np.abs(zq.numpy().transpose(0, 2, 3, 1) - np.asarray(zq_j)).max() <= 1e-6
+    assert abs(float(loss) - float(loss_j)) <= 1e-6 * abs(float(loss_j))
+
+
+@pytest.mark.parametrize("scale", [0.5, 1.5])
+def test_random_resize_matches_jax(scale):
+    img = np.random.default_rng(8).integers(0, 256, (16, 24, 3), dtype=np.uint8)
+    for a in (img, img.astype(np.float32) / 255.0):
+        got, want = imgproc.random_resize(a, scale), jax_imgproc.random_resize(a, scale)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+

@@ -2,6 +2,9 @@
 imports jax, flax, optax or anything of ``glare_tpu``; heavy optional packages
 (yaml, cv2, pandas, triton) are imported only inside the functions that use
 them; and ``import glare_tpu_torch`` works without any of them and without a GPU.
+Every public top-level name of a ``glare_tpu`` module has a counterpart of the same
+name in the matching ``glare_tpu_torch`` module, but the names ``NOT_PORTED``
+lists (by AST only: milliseconds).
 """
 
 import ast
@@ -60,8 +63,8 @@ def test_sources_found():
     # every kernel source and header the build compiles (python3 chip_smoke.py builds them all)
     from glare_tpu_torch.ops import _build
 
-    assert set(_build.sources()) == {"vq_argmin", "attn_hopper", "attn_fused", "dcn_hopper", "dcn_fwd",
-                                     "dcn_bwd"}
+    assert set(_build.sources()) == {"vq_argmin", "attn_hopper", "attn_hopper_f32", "attn_fused",
+                                     "dcn_hopper", "dcn_fwd", "dcn_bwd"}
     assert [os.path.basename(h) for h in _build.headers()] == ["dcn_tap.cuh"]
     for name in ("dcn_fwd", "dcn_bwd"):
         assert '#include "dcn_tap.cuh"' in open(_build.sources()[name]).read(), name
@@ -174,3 +177,67 @@ def test_chip_smoke_fails_loudly_without_a_gpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+JAX_PKG = os.path.join(ROOT, "glare_tpu")
+# a module of glare_tpu whose counterpart has another file name in the port
+PORT_FILE = {"ops/attn_pallas.py": "ops/attn.py", "ops/dcn_pallas.py": "ops/dcn.py"}
+# public names of glare_tpu with no counterpart of the same name, each for the
+# reason ROADMAP.md gives under "Not ported, and why" (keep the two lists alike)
+NOT_PORTED = {
+    # the Pallas kernels: ported as CUDA kernels under the port's own names
+    "ops/vq.py": {"nearest_code_pallas"},
+    "ops/dcn_pallas.py": {"modulated_deform_conv_pallas", "modulated_deform_conv_pallas_cascade"},
+    # flax initializers that copy torch's defaults, which the port's modules have
+    "nn/layers.py": {"torch_conv_kernel_init", "torch_conv_bias_init"},
+    # a functional merge of a flax tree; ActNorm2d.initialize writes in place
+    "modules/flow_layers.py": {"merge_actnorm_init"},
+    # the port has ScaledKaimingConv
+    "sr/archs/arch_util.py": {"scaled_kaiming_init"},
+    # yaml classes built at import; the port imports yaml inside parse() / save_opt()
+    "options/options.py": {"Loader", "Dumper"},
+    # the port has utils/lpips.py
+    "utils/lpips_jax.py": {"load_lpips", "probe_lpips_cache"},
+    # nothing may be downloaded
+    "sr/utils/download_util.py": {"download_file_from_google_drive", "get_confirm_token",
+                                  "load_file_from_url", "save_response_content"},
+}
+
+
+def _top_level_names(path, with_imports):
+    """def / class / assignment targets at module level (and imported names)."""
+    out = set()
+    for node in ast.parse(open(path).read(), path).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for tgt in node.targets if isinstance(node, ast.Assign) else [node.target]:
+                elts = tgt.elts if isinstance(tgt, ast.Tuple) else [tgt]
+                out |= {e.id for e in elts if isinstance(e, ast.Name)}
+        elif with_imports and isinstance(node, (ast.Import, ast.ImportFrom)):
+            out |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    return out
+
+
+def _jax_modules():
+    for d, _, names in os.walk(JAX_PKG):
+        for n in sorted(names):
+            if n.endswith(".py"):
+                yield os.path.relpath(os.path.join(d, n), JAX_PKG)
+
+
+def test_every_public_name_of_the_jax_package_has_a_counterpart():
+    gaps, stale = {}, {}
+    for rel in _jax_modules():
+        public = {n for n in _top_level_names(os.path.join(JAX_PKG, rel), False)
+                  if not n.startswith("_")} - {"Dtype"}   # Dtype: a typing alias
+        allowed = NOT_PORTED.get(rel, set())
+        port = os.path.join(PKG, PORT_FILE.get(rel, rel))
+        have = _top_level_names(port, True) if os.path.exists(port) else set()
+        if public - allowed - have:
+            gaps[rel] = sorted(public - allowed - have)
+        if allowed - (public - have):
+            stale[rel] = sorted(allowed - (public - have))
+    assert not gaps, f"public names of glare_tpu with no counterpart in the port: {gaps}"
+    assert not stale, f"NOT_PORTED names that are ported, or gone from glare_tpu: {stale}"
+    assert len(list(_jax_modules())) > 80
