@@ -87,6 +87,12 @@ Phases, each printing one JSON line:
              (the tiled kernel), the backward's gather pass (dcn_bwd) and
              vq_argmin and no plain version; frozen modules bit-equal;
              one step's loss and gradients against the plain versions' autograd
+             then the same model with dcn_impl xla, which JAX's rule makes a
+             remat step (the AFT decoder's ResnetBlocks, AttnBlocks and
+             WarpBlocks under torch.utils.checkpoint): one step's loss and
+             gradients between two of the same step with remat off, within their
+             own spread (or 1e-6 relative); peak memory and ms of each; the
+             WarpBlocks' DCN forwards recomputed (4 launches a step, not 2)
   train_path_bf16  the same with train.mixed_precision (bf16 compute, float32
              master weights and Adam moments): each step through the Hopper DCN
              forward, the bf16 gather pass and vq_argmin; one step through the
@@ -145,6 +151,15 @@ Phases, each printing one JSON line:
              audit_dcn_offsets'), tools/flops_audit of one image (its kernel
              rows the formulas of PERF.md section 6) and the MFU of main_path's
              ms per image against the 989 TFLOP/s data-sheet peak
+  unpaired_path  cli/infer_unpaired.py's main on the card (confs/LOL.yml, main_path's
+             seeded weights, a temporary working directory) over three seeded
+             low-light PNGs: 601x399 (608x400 after the CLI's reflect pad: 15200
+             latent tokens, whole 8x16 DCN tiles), its portrait 399x601, and
+             333x250 (5376 tokens: below the fused attention's 8192); per image the
+             shapes each kernel saw, the launches (vq_argmin 1, attention hopper 11
+             above 8192 tokens and 0 below, dcn_hopper 2), the DCN impl (the
+             conf's: the CLI runs no start-up audit) and ms; each written PNG held
+             to the same function through the plain versions by main_path's bar
   dp_path    data parallelism (glare_tpu_torch/parallel) in spawned processes on
              this card, train_path's model and a global batch of 2: (a) NCCL at
              world size 1, a DDP step against the same step unwrapped (loss,
@@ -1770,14 +1785,15 @@ def phase_main_path():
     return path_counts, model, calls
 
 
-def stages_vs_plain(model, model32, lq, aft_model=None, aft_model32=None):
+def stages_vs_plain(model, model32, lq, aft_model=None, aft_model32=None, out=None):
     """Per-stage times of ``model`` (bf16, kernels) on ``lq`` (second of two passes)
     and each stage held against ``model`` run with the plain versions and against
     the float32 ``model32`` run with them, every stage fed the kernel run's
     inputs (:func:`require_stages`); codebook index flips only at near-ties.
     ``aft_model`` / ``aft_model32``: other models whose ``aft_half`` gives the two
-    plain runs of the last stage (default ``model`` / ``model32``). -> (stage_ms,
-    stages, index flips, their worst relative gap)."""
+    plain runs of the last stage (default ``model`` / ``model32``); ``out``: a dict
+    given the last stage's three outputs (``rec``, ``rec_plain``, ``rec_f32``).
+    -> (stage_ms, stages, index flips, their worst relative gap)."""
     aft_model, aft_model32 = aft_model or model, aft_model32 or model32
     with torch.inference_mode():
         x_nchw = lq.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
@@ -1812,6 +1828,8 @@ def stages_vs_plain(model, model32, lq, aft_model=None, aft_model32=None):
     require(bool((idx_f == idx_p).all()), "float32 and bf16 models disagree on codebook indices "
             "for the same latent: their codebooks differ")
     flips, flip_rel_gap = index_flips(model, x, idx_k, idx_p)
+    if out is not None:
+        out.update(rec=rec, rec_plain=rec_p, rec_f32=rec_f)
     return stage_ms, stages, flips, flip_rel_gap
 
 
@@ -2397,6 +2415,203 @@ def phase_eval_path(model=None):
           "per_image": per_image, "niqe_fit_ms": fit_ms, "launches": moved})
 
 
+# (name, width, height) of unpaired_path's synthetic photos: 608x400 after the CLI's
+# reflect pad (15200 latent tokens, above the fused attention's 8192; whole 8x16
+# DCN tiles at both warps), its portrait, and 336x256 (5376 tokens: no attention
+# launch, the chunked path)
+UNPAIRED_IMAGES = (("wide", 601, 399), ("portrait", 399, 601), ("small", 333, 250))
+ATTN_BLOCKS = 11   # AttnBlocks of the stage-3 network, each fused above 8192 tokens
+
+
+def _unpaired_photos(folder):
+    """Seeded low-light PNGs (uint8) of UNPAIRED_IMAGES under ``folder``."""
+    import cv2
+
+    paths = []
+    for i, (name, w, h) in enumerate(UNPAIRED_IMAGES):
+        img = np.exp(seeded_image(40 + i, 1, h, w)[0]) * 255.0
+        path = os.path.join(folder, f"{i}_{name}.png")   # the CLI's natural order is this one
+        require(cv2.imwrite(path, np.clip(img, 0, 255).astype(np.uint8)), f"cannot write {path}")
+        paths.append(path)
+    return paths
+
+
+@contextlib.contextmanager
+def _recorded_enhance(records, shapes):
+    """infer_unpaired.enhance_image and the kernel-bearing functions of the path,
+    wrapped to record per image: launches, ms (host clock around a synchronize),
+    the shapes each kernel saw, the DCN impl of the packs, the output."""
+    from glare_tpu_torch.cli import infer_unpaired
+
+    enhance, attn, vq = infer_unpaired.enhance_image, attn_ops.flash_attention_nhc, vq_ops.nearest_code
+
+    def rec_attn(q, k, v, **kw):
+        shapes["attention"].append({"qkv": list(q.shape), "n_true": kw.get("n_true"),
+                                    "dtype": str(q.dtype).split(".")[-1]})
+        return attn(q, k, v, **kw)
+
+    def rec_vq(z, e):
+        shapes["vq_argmin"].append({"z": list(z.shape), "codebook": list(e.shape)})
+        return vq(z, e)
+
+    def rec_enhance(model, lr, apply_log):
+        shapes["attention"], shapes["vq_argmin"] = [], []
+        before = counters()
+        out, ms = sync_ms(lambda: enhance(model, lr, apply_log))
+        dec = model.netG.deformable_decoder
+        records.append({"input": list(lr.shape), "ms": ms, "launches": moved_since(before),
+                        "attention": shapes["attention"], "vq_argmin": shapes["vq_argmin"],
+                        "dcn": dec.last_dcn_shapes(), "dcn_impl": [p.impl for p in dec.dcn_packs()],
+                        "out": out})
+        return out
+
+    with _swapped({(infer_unpaired, "enhance_image"): rec_enhance, (attn_ops, "flash_attention_nhc"): rec_attn,
+                   (vq_ops, "nearest_code"): rec_vq}):
+        yield
+
+
+def _cli_png(rec, pads):
+    """cli/infer_unpaired.py's image of ``aft_half``'s output (what ``get_sr``
+    returns): cropped to the input, clipped, uint8."""
+    from glare_tpu_torch.utils.metrics import img_as_ubyte
+
+    h1, h2, w1, w2 = pads
+    sr = rec.float().permute(0, 2, 3, 1)[0].cpu().numpy()
+    return img_as_ubyte(np.clip(sr[h1: sr.shape[0] - h2, w1: sr.shape[1] - w2], 0, 1))
+
+
+def phase_unpaired_path(profile=False):
+    """``python -m glare_tpu_torch.cli.infer_unpaired --opt CONF`` on the card: CONF is
+    confs/LOL.yml with ``model_path`` at main_path's seeded weights (a .pth of its
+    tempered generator) and ``dataroot_unpaired`` at UNPAIRED_IMAGES, run in a
+    temporary working directory (results/ lands there). The CLI runs no start-up
+    audit (the JAX CLI neither): the DCN packs take the conf's impl, which is
+    LOL.yml's inference default 'xla' (exact; on the card the Hopper entry with no
+    clamp). The CLI runs twice, the first a warm-up at each shape; the counts are
+    set to 0 before the second. Each written PNG equals what the CLI computed, and
+    is held by main_path's bar (stages_vs_plain: every stage of get_sr on the CLI's
+    input through the plain versions in bf16 and, on a float32 model of the same
+    weights, in float32, each fed the kernel run's inputs; codebook flips only at
+    near-ties) and, as a PNG, against the PNGs the CLI makes of the two plain runs'
+    last stage, by the same ratio rule. ``profile``: then one traced ``get_sr`` of
+    the first image's padded input (phase_profile)."""
+    import io
+    import tempfile
+
+    import yaml
+
+    from glare_tpu_torch.cli import infer_unpaired
+    from glare_tpu_torch.cli.infer_paired import load_model
+    from glare_tpu_torch.models import create_model
+    from glare_tpu_torch.models.vqllflowd_model import temper_offset_heads
+    from glare_tpu_torch.utils.imgproc import auto_padding, imread, log_transform
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(repo, "confs", "LOL.yml")) as f:
+        conf = yaml.safe_load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        seeded = create_model(lol_opt(), device="cuda")
+        temper_offset_heads(seeded.netG, seed=7, std=0.02)
+        weights = os.path.join(tmp, "net_G.pth")
+        torch.save({k: v.detach().float().cpu() for k, v in seeded.netG.state_dict().items()}, weights)
+        del seeded
+        os.makedirs(os.path.join(tmp, "photos"))
+        photos = _unpaired_photos(os.path.join(tmp, "photos"))
+        conf.update({"model_path": weights, "dataroot_unpaired": os.path.join(tmp, "photos")})
+        conf_path = os.path.join(tmp, "LOL.yml")
+        with open(conf_path, "w") as f:
+            yaml.safe_dump(conf, f)
+        conf32 = os.path.join(tmp, "LOL_f32.yml")
+        with open(conf32, "w") as f:
+            yaml.safe_dump({**conf, "inference_dtype": "float32"}, f)
+
+        cwd, argv = os.getcwd(), sys.argv
+        runs, shapes, cli_out = [], {}, io.StringIO()
+        try:
+            os.chdir(tmp)
+            sys.argv = ["infer_unpaired", "--opt", conf_path]
+            for run in range(2):   # the first: warm-up at each shape
+                records = []
+                if run == 1:
+                    reset_counters()
+                with _recorded_enhance(records, shapes), contextlib.redirect_stdout(cli_out):
+                    infer_unpaired.main()
+                runs.append(records)
+            path_counts = counters()
+        finally:
+            os.chdir(cwd)
+            sys.argv = argv
+        records = runs[1]
+        require(len(records) == len(UNPAIRED_IMAGES), f"the CLI enhanced {len(records)} images")
+        require(cli_out.getvalue().count(" -> ") == 2 * len(UNPAIRED_IMAGES), "the CLI's progress lines")
+
+        model, _ = load_model(conf_path, device="cuda")
+        model32, _ = load_model(conf32, device="cuda")
+        images = []
+        for (name, w, h), src, rec, warm in zip(UNPAIRED_IMAGES, photos, records, runs[0]):
+            written = imread(os.path.join(tmp, "results", "LOL", "unpaired", os.path.basename(src)))
+            require(written.shape == (h, w, 3), f"{name}: written {written.shape}, input {(h, w, 3)}")
+            require(np.array_equal(written, rec["out"]), f"{name}: the PNG is not what the CLI computed")
+            hp, wp = h + 16 - h % 16, w + 16 - w % 16   # cli's auto_padding (a multiple gets 16 more)
+            tokens = (hp // 4) * (wp // 4)
+            attn_n = ATTN_BLOCKS if tokens > 8192 else 0
+            want = {**{k: 0 for k in counters()}, "vq_argmin": 1, "attn_hopper": attn_n, "dcn_hopper": 2}
+            require(rec["launches"] == want, f"{name}: launches {rec['launches']} != {want}")
+            require(all(a["n_true"] == tokens and a["qkv"][1] == -(-tokens // 2048) * 2048
+                        for a in rec["attention"]), f"{name}: attention shapes {rec['attention']}")
+            require(rec["dcn_impl"] == ["xla", "xla"], f"{name}: DCN impl {rec['dcn_impl']}")
+            require([v["x"][1:3] for v in rec["dcn"].values()] == [[hp // 2, wp // 2], [hp, wp]],
+                    f"{name}: DCN shapes {rec['dcn']}")
+            # main_path's bar: each stage of get_sr on the CLI's input (padded, log)
+            # through the plain versions in bf16 and in float32, fed the kernel run's
+            # inputs; then the PNG the CLI makes of each run's last stage
+            padded, pads = auto_padding(imread(src), times=16)
+            lq = dev(log_transform(padded.astype(np.float32) / 255.0)[None])
+            recs = {}
+            stage_ms, stages, flips, flip_gap = stages_vs_plain(model, model32, lq, out=recs)
+            pngs = [_cli_png(recs[k], pads) for k in ("rec", "rec_plain", "rec_f32")]
+            cmp = stage_cmp(*(torch.from_numpy(a.astype(np.float64)) for a in (written, *pngs[1:])))
+            require_stages({f"unpaired.{name}.png": cmp})
+            # the whole CLI function through the plain versions, for the record: each
+            # run picks its own codebook entries (counted against the kernel run's)
+            quant = model.net_hq.quantize
+            with torch.inference_mode():
+                infer_unpaired.enhance_image(model, imread(src), True)
+                idx_k = quant.last_indices.clone()
+                with plain_versions():
+                    before = counters()
+                    whole = [infer_unpaired.enhance_image(model, imread(src), True)]
+                    idx_p = quant.last_indices.clone()
+                    whole.append(infer_unpaired.enhance_image(model32, imread(src), True))
+                    require(counters() == before, "the plain-version run launched a kernel")
+            whole_cmp = {**stage_cmp(*(torch.from_numpy(a.astype(np.float64)) for a in (written, *whole))),
+                         "codebook_indices_differing": int((idx_k != idx_p).sum())}
+            images.append({"image": name, "input_wh": [w, h], "padded_wh": [wp, hp], "latent_tokens": tokens,
+                           "ms": rec["ms"], "warmup_ms": warm["ms"], "stage_ms": stage_ms,
+                           "launches": rec["launches"],
+                           "attention_shapes": [json.loads(a) for a in sorted(
+                               {json.dumps(a, sort_keys=True) for a in rec["attention"]})],
+                           "attention_calls": len(rec["attention"]),
+                           "vq_argmin_shapes": rec["vq_argmin"], "dcn_shapes": rec["dcn"],
+                           "dcn_impl": rec["dcn_impl"], "dcn_entry": "hopper" if rec["launches"]["dcn_hopper"] else None,
+                           "png_vs_plain": cmp, "stages_vs_plain": stages, "index_flips": flips,
+                           "index_flip_worst_rel_gap": flip_gap, "rerun_png_equal": bool(np.array_equal(pngs[0], written)),
+                           "whole_cli_vs_plain_not_held": whole_cmp})
+        if profile:
+            padded, _ = auto_padding(imread(photos[0]), times=16)
+            lq = dev(log_transform(padded.astype(np.float32) / 255.0)[None])
+            phase_profile(lambda: model.get_sr(lq), f"one get_sr of unpaired_path's {UNPAIRED_IMAGES[0][0]} "
+                          f"image, {padded.shape[1]}x{padded.shape[0]} padded, bf16, dcn_impl xla")
+        del model, model32
+    for k in ("vq_argmin", "attn_hopper", "dcn_hopper"):
+        require(path_counts[k] > 0, f"kernel {k} was never launched on unpaired_path")
+    emit({"phase": "unpaired_path", "config": "confs/LOL.yml (bf16, dcn_impl default xla), main_path's seeded "
+          "weights, cli.infer_unpaired.main", "dcn_route": "no start-up audit in the unpaired CLI (as in JAX): "
+          "the conf's impl; ops.dcn.route -> hopper", "images": images, "launches_total": path_counts,
+          "stage_tol": f"kernel_vs_f32 <= {STAGE_RATIO} * plain_vs_f32 + {STAGE_ABS_SLACK} (uint8 PNGs)"})
+    return path_counts
+
+
 def stage2_opt(dtype="bfloat16"):
     """The values of confs/train_stage2_LOL.yml that inference reads."""
     opt = lol_opt()
@@ -2732,7 +2947,66 @@ def phase_train_path():
     require(min(gap_k, gap_p) > 0.02, f"offsets within {min(gap_k, gap_p)} px of the integer grid")
     require(cmp["loss_rel"] <= STEP_LOSS_TOL, f"step loss: kernels {loss_k}, plain {loss_p}")
     require(grads["worst"] <= STEP_GRAD_TOL, f"gradient {grads['worst_tensor']}: {grads['worst']}")
+    _remat_step(batches[4])
     return path_counts, model
+
+
+REMAT_FLOOR = 1e-6   # relative: the bar of a remat step where two plain steps agree exactly
+
+
+def _remat_step(batch):
+    """network_G.dcn_impl xla in training: JAX's rule (define_Flow) turns remat on,
+    so every ResnetBlock, AttnBlock and WarpBlock of the AFT decoder runs under
+    torch.utils.checkpoint. One step's loss and gradients (no update) with remat,
+    between two of the same step with remat off (the same model, the flag
+    cleared): the remat step's distance from the first plain step, per tensor,
+    within the two plain steps' own distance or REMAT_FLOOR, whichever is larger.
+    Launches per step: the plain step's DCN forwards (dcn_fwd_f32 2, the exact op
+    under autograd) and 2 more with remat (the WarpBlocks recomputed in the
+    backward). Peak memory and ms of each step."""
+    from glare_tpu_torch.models import create_model
+    from glare_tpu_torch.models.vqllflowd_model import temper_offset_heads
+
+    opt = train_opt()
+    opt["network_G"]["dcn_impl"] = "xla"
+    model = create_model(opt, device="cuda")
+    dec = model.netG.deformable_decoder
+    require(dec.remat, "dcn_impl xla in training: define_Flow left remat off")
+    temper_offset_heads(model.netG, seed=7, std=0.02)
+    condition_offset_heads(model, batch)
+    runs = {}
+    for name, remat in (("warmup", False), ("plain", False), ("remat", True), ("plain_again", False)):
+        dec.remat = remat
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = counters()
+        (loss, parts, grads, gap), ms = sync_ms(lambda: _step_grads(model, batch))
+        runs[name] = {"loss": loss, "parts": parts, "grads": grads, "gap": gap, "ms": ms,
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                      "launches": moved_since(before)}
+    dec.remat = True
+    per_step = {**{k: 0 for k in counters()}, "vq_argmin": 1, "dcn_fwd_f32": 2, "dcn_bwd": 2}
+    for name, r in runs.items():
+        want = {**per_step, "dcn_fwd_f32": 4} if name == "remat" else per_step
+        require(r["launches"] == want, f"remat check, {name} step: launches {r['launches']} != {want}")
+    plain, again, rem = runs["plain"], runs["plain_again"], runs["remat"]
+    top = max(float(g.abs().max()) for g in plain["grads"].values())
+    spread = _dists(again["grads"], plain["grads"], top, "plain-step gradient")
+    dist = _dists(rem["grads"], plain["grads"], top, "remat-step gradient")
+    over = {n: (d, spread[n]) for n, d in dist.items() if d is not None and d > max(spread[n], REMAT_FLOOR)}
+    loss_spread = abs(again["loss"] - plain["loss"]) / abs(plain["loss"])
+    loss_dist = abs(rem["loss"] - plain["loss"]) / abs(plain["loss"])
+    emit({"phase": "train_path.remat", "config": "train_path's model with dcn_impl xla (remat on by JAX's rule)",
+          "steps": {n: {**{k: r[k] for k in ("loss", "parts", "ms", "max_memory_allocated", "gap")},
+                        "launches": {k: v for k, v in r["launches"].items() if v}} for n, r in runs.items()},
+          "loss_rel": {"remat_vs_plain": loss_dist, "plain_vs_plain": loss_spread},
+          "grads_remat_vs_plain": _worst(dist), "grads_plain_vs_plain": _worst(spread),
+          "tensors_over_the_bar": over,
+          "tol": f"each gradient and the loss: remat vs plain <= max(plain vs plain, {REMAT_FLOOR}) relative"})
+    require(loss_dist <= max(loss_spread, REMAT_FLOOR), f"remat step loss {rem['loss']}, plain {plain['loss']}")
+    require(not over, f"remat step gradients beyond the plain steps' spread: {over}")
+    del model
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -3118,8 +3392,8 @@ def phase_train_stage2_path():
         peak_mem = torch.cuda.max_memory_allocated()
         before = counters()
         logger = logging.getLogger("chip_smoke")
-        psnr, val_ms = sync_ms(lambda: train_cli.validate(model, val_loader, len(batches), logger,
-                                                          stage=2))
+        psnr, val_ms = sync_ms(lambda: train_cli.validate(model, val_loader, model.opt, 2, len(batches),
+                                                          logger))
         moved = moved_since(before)
         want_val = {**no_launch, "vq_argmin": S2_VAL}
         require(moved == want_val, f"stage-2 validation launches {moved} != {want_val}")
@@ -4709,7 +4983,7 @@ COUNTER_OF = {"dcn_hopper_train": "dcn_hopper"}
 ALL_PHASES = ("device,build,kernels,main_path,eval_path,hybrid_path,gather_path,flow_path,f32_attn_path,"
               "stage2_path,"
               "train_path,train_path_bf16,train_stage2_path,train_stage1_path,train_stage1_lq_path,"
-              "haze_lq_path,swinir_path,degradation_path,legacy_path,tools_path,dp_path")
+              "haze_lq_path,swinir_path,degradation_path,legacy_path,tools_path,dp_path,unpaired_path")
 
 
 def main():
@@ -4717,7 +4991,7 @@ def main():
     ap.add_argument("--phases", default=ALL_PHASES,
                     help="comma list; the last line is printed only when all of them ran")
     ap.add_argument("--profile", action="store_true",
-                    help="after main_path, trace one get_sr (after train_path, train_path_bf16, "
+                    help="after main_path and in unpaired_path, trace one get_sr (after train_path, train_path_bf16, "
                          "train_stage2_path and the two stage-1 paths, one training step; the stage-1 "
                          "iterations also with cudnn.benchmark) with torch.profiler and print device "
                          "time by kernel category")
@@ -4741,6 +5015,9 @@ def main():
         counts["tools_path"] = phase_tools_path(model, main_calls, card)
     del model
     torch.cuda.empty_cache()
+    if "unpaired_path" in phases:
+        counts["unpaired_path"] = phase_unpaired_path(args.profile)
+        torch.cuda.empty_cache()
     if "hybrid_path" in phases:
         counts["hybrid_path"] = phase_hybrid_path()
         torch.cuda.empty_cache()

@@ -11,8 +11,12 @@ discovery, experiment-dir archival, the ``--niter`` override (with
 ``lr_steps_rel`` re-expanded), ``print_freq`` logging, the checkpoint cadence
 (``save_checkpoint_freq``, denser past 30k / 40k / 50k iterations), a non-finite
 loss reloading the newest training state, validation every ``val_freq`` through
-``get_sr`` (stage 2: and ``decode_latent``) with best-PSNR snapshots, and 2 kept
-training states. Artifacts: ``{iter}_G.pth`` under ``models/`` (a ``state_dict``
+``get_sr`` (stage 2: and ``decode_latent``) with best-PSNR snapshots, 2 kept
+training states, and tensorboard scalars under ``experiments_root/tb_logger``
+when the conf sets ``use_tb_logger`` and its name holds no ``debug`` (rank 0;
+without the tensorboard package a warning, and training goes on): every
+``print_freq`` iterations ``loss/{k}``, ``lr``, ``time/iteration``, ``time/data``
+and ``eta_h``, and ``val/psnr`` at each validation. Artifacts: ``{iter}_G.pth`` under ``models/`` (a ``state_dict``
 the inference CLIs and ``cli/test_stages.py`` load) and ``{iter}.state`` under
 ``training_state/``. ``--stage`` picks the default conf and the validation; the
 conf's ``model`` must be that stage's (stage 2 ``LLFlow``, stage 3 ``VQLLFLOWD``).
@@ -44,6 +48,7 @@ from ..models.base_model import resolve_device
 from ..options import dict2str, dict_to_nonedict, parse
 from ..parallel.mesh import init_distributed, local_device
 from ..utils import Timer, TickTock, mkdir_and_rename, mkdirs, set_random_seed, setup_logger
+from ..sr.utils.logger import init_tb_logger
 from ..utils.metrics import PSNR, gray_mean_adjust
 from ..utils.util import get_resume_paths, opt_get
 
@@ -100,6 +105,10 @@ def main(stage=3, argv=None):
     logger = logging.getLogger("base")
     logger.info(dict2str(opt))
 
+    tb_logger = None
+    if main_rank and opt.get("use_tb_logger") and "debug" not in opt["name"]:
+        tb_logger = init_tb_logger(os.path.join(opt["path"]["experiments_root"], "tb_logger"))
+
     seed = opt_get(opt, ["train", "manual_seed"], 10) or 10
     set_random_seed(seed)
 
@@ -153,13 +162,20 @@ def main(stage=3, argv=None):
 
             if current_step % print_freq == 0:
                 avg_it = timer.get_average_and_reset()
-                tick_tock.get_average_and_reset()
+                avg_data = tick_tock.get_average_and_reset()
                 eta = (total_iters - current_step) * max(avg_it, 0)
+                lr_now = float(model.schedule(current_step))
                 logger.info(
-                    f"<epoch:{epoch:3d}, iter:{current_step:8,d}, "
-                    f"lr:{model.schedule(current_step):.3e}> "
+                    f"<epoch:{epoch:3d}, iter:{current_step:8,d}, lr:{lr_now:.3e}> "
                     + " ".join(f"{k}: {v:.4e}" for k, v in model.get_current_log().items())
                     + f" it/s:{1.0 / max(avg_it, 1e-9):.2f} eta:{eta / 3600:.2f}h")
+                if tb_logger:
+                    for k, v in model.get_current_log().items():
+                        tb_logger.add_scalar(f"loss/{k}", v, current_step)
+                    tb_logger.add_scalar("lr", lr_now, current_step)
+                    tb_logger.add_scalar("time/iteration", avg_it, current_step)
+                    tb_logger.add_scalar("time/data", avg_data, current_step)
+                    tb_logger.add_scalar("eta_h", eta / 3600, current_step)
 
             dens = ((current_step > 50000 and current_step % 50 == 0)
                     or (current_step > 40000 and current_step % 100 == 0)
@@ -170,7 +186,7 @@ def main(stage=3, argv=None):
                 model.save_training(epoch, current_step)
 
             if current_step % val_freq == 0 and main_rank:
-                psnr = validate(model, val_loader, current_step, logger, stage=args.stage)
+                psnr = validate(model, val_loader, opt, args.stage, current_step, logger, tb_logger)
                 if psnr > best_psnr:
                     best_psnr = psnr
                     model.save(f"best_psnr_{current_step}")
@@ -182,13 +198,16 @@ def main(stage=3, argv=None):
     if main_rank:
         model.save(current_step)
         model.save_training(epoch, current_step)
+    if tb_logger:
+        tb_logger.close()
     logger.info("End of training. Total time: %.1fs", time.time() - t_start)
     return model, current_step
 
 
-def validate(model, val_loader, step, logger, n_max=4, stage=3):
-    """Mean PSNR (after the gray-mean adjustment) of the first ``n_max`` images;
-    stage 2 decodes its latent through the frozen VQGAN (``decode_latent``)."""
+def validate(model, val_loader, opt, stage, step, logger, tb_logger=None, n_max=4):
+    """Mean PSNR (after the gray-mean adjustment) of the first ``n_max`` images,
+    written to ``tb_logger`` as ``val/psnr``; stage 2 decodes its latent through
+    the frozen VQGAN (``decode_latent``). ``opt`` is the JAX signature's; unread."""
     psnrs = []
     for i, batch in enumerate(val_loader):
         if i >= n_max:
@@ -203,6 +222,8 @@ def validate(model, val_loader, step, logger, n_max=4, stage=3):
         psnrs.append(PSNR(gt, gray_mean_adjust(sr, gt)))
     mean_psnr = float(np.mean(psnrs)) if psnrs else float("nan")
     logger.info("# Validation # PSNR: %.4f (step %d)", mean_psnr, step)
+    if tb_logger:
+        tb_logger.add_scalar("val/psnr", mean_psnr, step)
     return mean_psnr
 
 

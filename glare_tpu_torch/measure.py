@@ -6,7 +6,8 @@ HWC RGB images. PSNR and SSIM are host numpy (``utils/metrics.py``); LPIPS is
 the AlexNet network of ``utils/lpips.py`` on ``device`` (float32), built at the
 first call; without its weights (``$GLARE_LPIPS_NPZ``) it is NaN, with one
 warning. ``device`` is ``cuda`` unless the caller asks for the CPU; with no GPU
-and no ``device="cpu"`` the constructor raises.
+and no ``device="cpu"`` the constructor raises. The JAX keyword ``use_gpu`` is
+taken too: True is ``cuda``, False ``cpu`` (not both keywords at once).
 
     python -m glare_tpu_torch.measure -dirA a -dirB b [-v] [--device cpu]
 
@@ -36,11 +37,21 @@ def t(img, device="cpu"):
     return torch.from_numpy(np.ascontiguousarray(img.transpose(2, 0, 1)[None])).to(device)
 
 
+def _measure_device(use_gpu, device):
+    """``use_gpu`` (the JAX keyword: True ``cuda``, False ``cpu``) or ``device``;
+    neither: ``cuda``."""
+    if use_gpu is not None and device is not None:
+        raise ValueError(f"pass use_gpu ({use_gpu!r}) or device ({device!r}), not both")
+    if use_gpu is not None:
+        return "cuda" if use_gpu else "cpu"
+    return device or "cuda"
+
+
 class Measure:
-    def __init__(self, net="alex", device="cuda"):
+    def __init__(self, net="alex", use_gpu=None, device=None):
         if net != "alex":
             raise ValueError(f"only the AlexNet LPIPS is ported, not {net!r}")
-        self.device = resolve_device(device)
+        self.device = resolve_device(_measure_device(use_gpu, device))
         self._lpips_fn = None
         self._lpips_tried = False
 
@@ -72,9 +83,9 @@ def format_result(psnr, ssim, lpips):
     return f"{psnr:0.2f}, {ssim:0.3f}, {lpips:0.3f}"
 
 
-def measure_dirs(dirA, dirB, device="cuda", verbose=False):
+def measure_dirs(dirA, dirB, use_gpu=None, verbose=False, device=None):
     """(psnr, ssim, lpips) of each pair of PNGs (natural order, recursive) ->
-    a list of ``{name, psnr, ssim, lpips}``."""
+    a list of ``{name, psnr, ssim, lpips}``; the device as :class:`Measure` takes it."""
     import cv2
 
     vprint = print if verbose else (lambda x: None)
@@ -82,7 +93,7 @@ def measure_dirs(dirA, dirB, device="cuda", verbose=False):
     paths_A = natsorted(glob.glob(os.path.join(dirA, "**", "*.png"), recursive=True))
     paths_B = natsorted(glob.glob(os.path.join(dirB, "**", "*.png"), recursive=True))
     vprint(f"Measuring: {dirA} vs {dirB}")
-    measure = Measure(device=device)
+    measure = Measure(use_gpu=use_gpu, device=device)
     results = []
     for pathA, pathB in zip(paths_A, paths_B):
         imgA = cv2.imread(pathA)[:, :, ::-1]

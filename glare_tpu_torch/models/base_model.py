@@ -16,7 +16,7 @@ import os
 
 import torch
 
-from ..utils.util import natsorted
+from ..utils.util import get_resume_paths, natsorted, opt_get
 
 
 def resolve_device(device) -> torch.device:
@@ -51,14 +51,32 @@ class BaseModel:
         return {k.replace("module.", "", 1) if k.startswith("module.") else k: v
                 for k, v in sd.items()}
 
+    @staticmethod
+    def load_params(path, template=None, strict=True):
+        """A ``state_dict`` file -> its tensors. With a ``template`` (a module or a
+        ``state_dict``): strict, the file must hold exactly its names at its
+        shapes; not strict, the template's tensors are kept where the file lacks
+        the name or has another shape (the JAX package's loose merge)."""
+        sd = BaseModel.load_state_dict_file(path)
+        if template is None:
+            return sd
+        if isinstance(template, torch.nn.Module):
+            template = template.state_dict()
+        if strict:
+            missing, extra = sorted(set(template) - set(sd)), sorted(set(sd) - set(template))
+            shapes = sorted(k for k in template if k in sd and sd[k].shape != template[k].shape)
+            if missing or extra or shapes:
+                raise RuntimeError(f"{path} does not match the template: missing {missing}, "
+                                   f"unexpected {extra}, other shapes {shapes}")
+        return {k: sd[k].to(v.dtype) if k in sd and sd[k].shape == v.shape else v
+                for k, v in template.items()}
+
     def load_into(self, network, path, strict=True):
-        """Load a torch ``state_dict`` file into ``network`` (shape-checked)."""
+        """Load a torch ``state_dict`` file into ``network`` (:meth:`load_params`
+        with the network as the template)."""
         if not os.path.exists(path):
             raise FileNotFoundError(path)
-        sd = self.load_state_dict_file(path)
-        own = network.state_dict()
-        sd = {k: v.to(own[k].dtype) if k in own else v for k, v in sd.items()}
-        return network.load_state_dict(sd, strict=strict)
+        return network.load_state_dict(self.load_params(path, network, strict=strict), strict=True)
 
     # ---------------- training checkpoints ----------------
 
@@ -87,6 +105,27 @@ class BaseModel:
 
     def get_current_log(self):
         return self.log_dict
+
+    def get_network_description(self, network=None):
+        """-> (the model's class name, the parameter count of ``network``, netG by
+        default), as the JAX package returns them."""
+        network = self.netG if network is None else network
+        return type(self).__name__, sum(p.numel() for p in network.parameters())
+
+    def load(self):
+        """The reference's start-up load: the ``{iter}_G`` beside the resume state
+        when there is one (strict), else ``path.pretrain_model_G``, strict as the
+        model's :meth:`_pretrain_strict` says (the JAX models' rules)."""
+        _, resume_model = get_resume_paths(self.opt)
+        if resume_model is not None and os.path.exists(self._torchify(resume_model)):
+            self.load_network(resume_model, strict=True)
+            return
+        load_path_G = opt_get(self.opt, ["path", "pretrain_model_G"])
+        if load_path_G and os.path.exists(self._torchify(load_path_G)):
+            self.load_network(load_path_G, strict=self._pretrain_strict())
+
+    def _pretrain_strict(self):
+        return True
 
     # ---------------- training (a model with netG, optimizer, schedule, updates) ----------------
 

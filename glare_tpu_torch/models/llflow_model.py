@@ -114,6 +114,10 @@ class LLFlowModel(BaseModel):
         self._actnorm_inited = True
         return res
 
+    def _pretrain_strict(self):
+        # load(): pretrain_model_G as path.strict_load says (default strict)
+        return bool((self.opt.get("path") or {}).get("strict_load", True))
+
     def load_state_dicts(self, stage2_sd=None, vqgan_sd=None):
         """Load in-memory state dicts (e.g. from ``convert.flax_to_torch_*``)."""
         cast_convs_(self.netG, torch.float32)

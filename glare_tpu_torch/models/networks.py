@@ -39,6 +39,10 @@ def define_Flow(opt, step=0):
         # kernel and csrc/dcn_bwd.cu).
         dcn_impl = opt_get(opt, ["network_G", "dcn_impl"], None) or (
             "chain" if opt.get("is_train") else "xla")
+        # network_G.remat: recompute the AFT decoder's blocks in the backward (JAX's
+        # default: on when training with a DCN other than the chain op)
+        remat = opt_get(opt, ["network_G", "remat"],
+                        bool(opt.get("is_train")) and dcn_impl != "chain")
         dcn_r = opt_get(opt, ["network_G", "dcn_max_offset"], 2) or 2
         if not isinstance(dcn_r, (tuple, list)):
             dcn_r = int(dcn_r)
@@ -50,7 +54,7 @@ def define_Flow(opt, step=0):
                 if opt_get(opt, ["network_G", k]) is not None}
         return VQLLFLOWDeformable(warp_mode=warp_mode, dcn_impl=dcn_impl, dcn_max_offset=dcn_r,
                                   dcn_hybrid_capacity=dcn_cap, dcn_hybrid_tail_offset=dcn_tail,
-                                  **mini, **kw)
+                                  remat=bool(remat), **mini, **kw)
     if which_model == "LLFlowVQGAN2":
         mini = {k: int(opt_get(opt, ["network_G", k]))
                 for k in ("enc_ch", "enc_num_res_blocks")

@@ -147,6 +147,10 @@ class VQLLFLOWDModel(BaseModel):
         self._finalize()
         return res
 
+    def _pretrain_strict(self):
+        # load(): the stage-2 generator's file lacks the AFT decoder: never strict
+        return False
+
     def load_state_dicts(self, stage3_sd=None, vqgan_sd=None):
         """Load in-memory state dicts (e.g. from ``convert.flax_to_torch_*``)."""
         cast_convs_(self.netG, torch.float32)

@@ -27,6 +27,7 @@ from typing import Any, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.layers import AttnBlock, Conv, GroupNorm32, ResnetBlock, Upsample, swish
 from ..ops import dcn as dcn_ops
@@ -167,13 +168,14 @@ class WarpBlock(nn.Module):
     3x3) follows. A flow warp has no DCN pack: ``dcn`` is None."""
 
     groups = 4            # deformable groups / flow groups, as in the JAX module
-    flow_max_offset = 2   # the JAX module's default, which no conf changes
 
     def __init__(self, channels, warp_mode="dcn", dcn_impl="xla", dcn_max_offset: Any = 2,
-                 dcn_hybrid_capacity=0.125, dcn_hybrid_tail_offset=8, dcn_audit_offsets=False):
+                 dcn_hybrid_capacity=0.125, dcn_hybrid_tail_offset=8, dcn_audit_offsets=False,
+                 flow_max_offset=2):
         super().__init__()
         if warp_mode not in ("dcn", "flow"):
             raise ValueError(f"warp_mode {warp_mode!r} is not 'dcn' or 'flow'")
+        self.flow_max_offset = flow_max_offset
         self.offset = Conv(channels * 2, channels, 3, padding=1)
         if warp_mode == "flow":
             self.dcn = None
@@ -236,6 +238,12 @@ class MultiScaleDecoder2(nn.Module):
     The two means are over the whole batch (all axes), as in JAX and the reference;
     ``means_over_ranks`` (set by a data-parallel model) takes them over the whole
     batch of the ``torch.distributed`` group (``parallel.global_mean``).
+
+    ``remat`` (the JAX module's ``nn.remat``): in a forward with grad enabled each
+    ``ResnetBlock``, ``AttnBlock`` and ``WarpBlock`` runs under
+    ``torch.utils.checkpoint`` (``use_reentrant=False``, the form DDP takes): its
+    activations are not kept but recomputed in the backward. The two means stay
+    outside the blocks. A forward without grad (inference) is unchanged.
     """
 
     means_over_ranks = False
@@ -244,8 +252,9 @@ class MultiScaleDecoder2(nn.Module):
                  attn_resolutions: Sequence[int] = (64,), dropout=0.0, resolution=256,
                  z_channels=3, warp_mode="dcn", dcn_impl: Any = "xla", dcn_max_offset: Any = 2,
                  dcn_hybrid_capacity: Any = 0.125, dcn_hybrid_tail_offset: Any = 8,
-                 dcn_audit_offsets=False):
+                 dcn_audit_offsets=False, remat=False):
         super().__init__()
+        self.remat = bool(remat)
         self.num_resolutions = len(ch_mult)
         self.num_res_blocks = num_res_blocks
         block_in = ch * ch_mult[self.num_resolutions - 1]
@@ -286,20 +295,27 @@ class MultiScaleDecoder2(nn.Module):
         self.norm_out = GroupNorm32(block_in)
         self.residual_conv = Conv(block_in, out_ch, 3, padding=1)
 
+    def _run(self, block, *args):
+        """``block(*args)``; with ``remat`` and grad enabled, recomputed in the backward."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def forward(self, z, code_decoder_output, enc_feat):
         h = self.conv_in(z)
-        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
+        for block in (self.mid.block_1, self.mid.attn_1, self.mid.block_2):
+            h = self._run(block, h)
         for i_level in reversed(range(self.num_resolutions)):
             level = self.up[i_level]
             for i_block in range(self.num_res_blocks + 1):
-                h = level.block[i_block](h)
+                h = self._run(level.block[i_block], h)
                 if len(level.attn) > 0:
-                    h = level.attn[i_block](h)
+                    h = self._run(level.attn[i_block], h)
             if i_level != 2:
                 w = 1 - i_level
                 x_code = code_decoder_output[w].to(h.dtype)
                 h = self.mix[w](enc_feat[i_level].to(h.dtype), h)
-                x_vq = self.warp[w](x_code, h)
+                x_vq = self._run(self.warp[w], x_code, h)
                 # the JAX module's jnp.mean: float32 sums, a result in h's dtype
                 mean = global_mean if self.means_over_ranks else torch.mean
                 ratio = mean(h.float()).to(h.dtype) / mean(x_vq.float()).to(h.dtype)

@@ -51,6 +51,23 @@ class GaussianDiag:
     def logp(mean, logs, x):
         return sum_per_sample(GaussianDiag.likelihood(mean, logs, x))
 
+    @staticmethod
+    def sample(generator, mean, logs, eps_std=1.0):
+        """``mean + exp(logs) * eps``, eps ~ N(0, eps_std^2) of mean's shape and dtype,
+        drawn from ``generator`` on its device (None: torch's global generator on
+        mean's device), as ``Split2d`` draws."""
+        device = generator.device if generator is not None else mean.device
+        eps = torch.randn(mean.shape, generator=generator, device=device,
+                          dtype=mean.dtype).to(mean.device) * eps_std
+        return mean + torch.exp(torch.as_tensor(logs, dtype=mean.dtype, device=mean.device)) * eps
+
+    @staticmethod
+    def sample_eps(generator, shape, eps_std=1.0, dtype=torch.float32):
+        """N(0, eps_std^2) of ``shape`` on ``generator``'s device (None: the CPU and
+        torch's global generator)."""
+        device = generator.device if generator is not None else None
+        return torch.randn(tuple(shape), generator=generator, device=device, dtype=dtype) * eps_std
+
 
 def split_feature_cross(h):
     """'cross' split: (even channels, odd channels)."""

@@ -55,16 +55,21 @@ class LLFlowVQGAN2(nn.Module):
     def encode_cond(self, lr, mid_feat=False):
         return self.RRDB(lr, mid_feat=mid_feat)
 
-    def normal_flow(self, gt, lr, lr_enc=None, add_gt_noise=False, ddinit=False, noise=None):
+    def normal_flow(self, gt, lr, lr_enc=None, add_gt_noise=False, ddinit=False, noise=None,
+                    generator=None):
         """Returns (z, nll, logdet). gt is the VQGAN latent [B, 3, h, w].
         ``add_gt_noise``: z = gt + (u - 0.5) / quant with u ~ U[0, 1) the given
-        ``noise`` (gt's shape; a caller that wants fresh noise draws ``torch.rand``)."""
+        ``noise`` (gt's shape), or without it drawn from ``generator`` on its device
+        (the JAX method's ``noise_rng``; None: torch's global generator)."""
         if lr_enc is None:
             lr_enc = self.RRDB(lr)
         pix = pixels(gt)
         z = at_least_float32(gt)
         logdet = torch.zeros(gt.shape[0], dtype=z.dtype, device=gt.device)
         if add_gt_noise:
+            if noise is None:
+                noise = torch.rand(gt.shape, generator=generator, dtype=z.dtype,
+                                   device=generator.device if generator is not None else gt.device)
             z = z + (noise.to(z) - 0.5) / self.quant
             logdet = logdet + float(-math.log(self.quant) * pix)
         z, logdet = self.flowUpsamplerNet.encode(z, lr_enc, logdet=logdet, ddinit=ddinit)

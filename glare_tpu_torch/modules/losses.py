@@ -98,10 +98,14 @@ def _state_dict_from_checkpoint(sd) -> dict:
             for i, fi in enumerate(VGG16_TORCH_CONV_IDX) for n in ("weight", "bias")}
 
 
-def load_vgg16_params(seed: int = 0, return_source: bool = False):
+def load_vgg16_params(seed: int = 0, return_source: bool = False, rng_seed=None):
     """A :class:`VGG16Features` ``state_dict`` from the best source there is (see
     the module docstring); ``return_source`` adds 'npz', 'torch-cache:<path>' or
-    'random'."""
+    'random'. ``rng_seed`` is the JAX package's name for ``seed``."""
+    if rng_seed is not None:
+        if seed not in (0, rng_seed):
+            raise ValueError(f"pass seed ({seed}) or rng_seed ({rng_seed}), not both")
+        seed = rng_seed
     path = os.environ.get("GLARE_VGG16_NPZ", "")
     if path and os.path.exists(path):
         data = np.load(path)
@@ -143,8 +147,9 @@ class PerceptualNetwork(nn.Module):
         self.vgg.requires_grad_(False).eval()
         self.pretrained = self.source != "random"
 
-    def features(self, x_nhwc):
-        x = x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    def features(self, x):
+        """VGG16 features of an NHWC image batch ``x``."""
+        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         return self.vgg(x.to(self.vgg.convs[0].weight.dtype))
 
     def forward(self, pred, gt):

@@ -39,8 +39,7 @@ class Split2d(nn.Module):
         mean, logs = self.split2d_prior(z1, ft)
         if eps is None:
             assert generator is not None, "Split2d reverse sampling needs a torch.Generator"
-            eps = torch.randn(mean.shape, generator=generator, device=generator.device,
-                              dtype=mean.dtype).to(mean.device) * (eps_std or 0.0)
+            eps = GaussianDiag.sample_eps(generator, mean.shape, eps_std or 0.0, mean.dtype).to(mean.device)
         z2 = mean + torch.exp(logs + self.logs_eps) * eps
         z = torch.cat([z1, z2], dim=1)
         if logdet is not None:

@@ -13,6 +13,9 @@ Sub-module names are the reference checkpoint's: ``RRDB``, ``flowUpsamplerNet``,
 ``deformable_decoder``. The flow always runs in float32; ``set_compute_dtype``
 sets the compute dtype of the convolutions of the encoder and the AFT decoder
 (stored in it for serving, or float32 master weights cast at use for training).
+``remat`` recomputes the AFT decoder's blocks in the backward of a training
+forward (:class:`MultiScaleDecoder2`); ``dcn_audit_offsets`` starts both DCN
+packs with ``audit_offsets`` on.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ class VQLLFLOWDeformable(nn.Module):
                  coupling="CondAffineSeparatedAndCond", quant=32.0, warp_mode="dcn",
                  dcn_impl: Any = "xla", dcn_max_offset: Any = 2,
                  dcn_hybrid_capacity: Any = 0.125, dcn_hybrid_tail_offset: Any = 8,
+                 dcn_audit_offsets=False, remat=False,
                  # structural miniaturization knobs (shipped geometry 2/2/128/128): the
                  # tests shrink all of them together with the VQGAN's ch
                  enc_num_res_blocks=2, dec_num_res_blocks=2, decoder_ch=128, enc_ch=128):
@@ -48,7 +52,8 @@ class VQLLFLOWDeformable(nn.Module):
             ch=decoder_ch, num_res_blocks=dec_num_res_blocks, warp_mode=warp_mode,
             dcn_impl=dcn_impl, dcn_max_offset=dcn_max_offset,
             dcn_hybrid_capacity=dcn_hybrid_capacity,
-            dcn_hybrid_tail_offset=dcn_hybrid_tail_offset)
+            dcn_hybrid_tail_offset=dcn_hybrid_tail_offset,
+            dcn_audit_offsets=dcn_audit_offsets, remat=remat)
 
     def configure_dcn(self, **knobs):
         """Change any of ``dcn_impl`` / ``dcn_max_offset`` / ``dcn_hybrid_capacity`` /

@@ -101,14 +101,15 @@ class GroupNorm32(nn.GroupNorm):
     """GroupNorm(32, eps=1e-6, affine) computed in float32 (float64 for a float64
     input), result in x's dtype.
 
-    ``GLARE_GN_BF16=1`` (read at construction, as the JAX module reads it) on a
-    bf16 input follows flax's ``GroupNorm(dtype=bfloat16)``: statistics in
+    ``bf16_io`` (default: ``GLARE_GN_BF16=1``, read at construction, as the JAX
+    module reads it) on a bf16 input follows flax's ``GroupNorm(dtype=bfloat16)``: statistics in
     float32 (mean, and E[x^2] - mean^2 clamped at 0), then ``(x - mean) *
     (rsqrt(var + eps) * scale) + bias`` in float32 and a bf16 result."""
 
-    def __init__(self, num_channels, num_groups=32, eps=1e-6):
+    def __init__(self, num_channels, num_groups=32, eps=1e-6, bf16_io=None):
         super().__init__(num_groups, num_channels, eps=eps, affine=True)
-        self.bf16_io = os.environ.get("GLARE_GN_BF16", "0") == "1"
+        self.bf16_io = (os.environ.get("GLARE_GN_BF16", "0") == "1" if bf16_io is None
+                        else bool(bf16_io))
 
     def forward(self, x):
         if self.bf16_io and x.dtype == torch.bfloat16:

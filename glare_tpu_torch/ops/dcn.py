@@ -866,18 +866,33 @@ def _hybrid(base, x, offset, mask, weight, bias, max_offset, capacity_frac):
     return out if bias is None else out + bias.to(out.dtype)
 
 
+HYBRID_BASES = ("chain", "pallas")
+
+
+def _hybrid_base(base):
+    """The JAX op's ``base`` picks its clamp-R base pass (the select-chain or the
+    Pallas kernel); both are the same function, which the port computes one way."""
+    if base not in HYBRID_BASES:
+        raise ValueError(f"base {base!r}: the gather hybrid's clamp-R base pass is 'chain' or "
+                         "'pallas' (one pass in the port: the kernel on the card, its plain "
+                         "version on the CPU)")
+
+
 def modulated_deform_conv_hybrid_ref(x, offset, mask, weight, bias=None, max_offset=2,
-                                     capacity_frac=0.125):
+                                     capacity_frac=0.125, base="chain"):
     """Plain PyTorch gather hybrid: the base pass by :func:`modulated_deform_conv_ref`."""
+    _hybrid_base(base)
     return _hybrid(modulated_deform_conv_ref, x, offset, mask, weight, bias, max_offset,
                    capacity_frac)
 
 
 def modulated_deform_conv_hybrid(x, offset, mask, weight, bias=None, max_offset=2,
-                                 capacity_frac=0.125):
+                                 capacity_frac=0.125, base="chain"):
     """The gather hybrid: for CUDA tensors the base pass is one launch of the
     kernel :func:`route` picks (:func:`modulated_deform_conv_cuda`; it raises
-    rather than fall back), on the CPU the plain version."""
+    rather than fall back), on the CPU the plain version. ``base``: "chain" or
+    "pallas" (:data:`HYBRID_BASES`), both this base pass."""
+    _hybrid_base(base)
     if not _build.on_card(x):
         return modulated_deform_conv_hybrid_ref(x, offset, mask, weight, bias, max_offset,
                                                 capacity_frac)

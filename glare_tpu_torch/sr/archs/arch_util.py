@@ -21,9 +21,14 @@ from torch import nn
 from ...nn.layers import Conv, ScaledKaimingConv
 
 
-# [B, C*s^2, H, W] <-> [B, C, H*s, W*s], channel c*s^2 + sy*s + sx
-pixel_shuffle = F.pixel_shuffle
-pixel_unshuffle = F.pixel_unshuffle
+def pixel_shuffle(x, scale):
+    """[B, C*s^2, H, W] -> [B, C, H*s, W*s], channel c*s^2 + sy*s + sx."""
+    return F.pixel_shuffle(x, scale)
+
+
+def pixel_unshuffle(x, scale):
+    """[B, C, H*s, W*s] -> [B, C*s^2, H, W], the inverse of :func:`pixel_shuffle`."""
+    return F.pixel_unshuffle(x, scale)
 
 
 def make_layer(basic_block, num_basic_block, **kwarg):

@@ -132,7 +132,8 @@ class VQWeightDehazeNet(nn.Module):
         self.use_quantize, self.use_residual, self.only_residual = use_quantize, use_residual, only_residual
         self.frozen_module_keywords = frozen_module_keywords
         self.scales = tuple(scales)
-        self.max_depth = int(math.log2(gt_resolution // scales[0]))
+        self.codebook_scale = scales[0]
+        self.max_depth = int(math.log2(gt_resolution // self.codebook_scale))
 
         self.multiscale_encoder = MultiScaleEncoder(
             in_channel, self.max_depth, gt_resolution, norm_type, act_type, LQ_stage,

@@ -49,6 +49,15 @@ class BaseSRModel:
         concatenation and one pass, not one launch per tensor."""
         self.ema_flat.mul_(decay).add_(self._flat_params(), alpha=1.0 - decay)
 
+    @staticmethod
+    @torch.no_grad()
+    def model_ema_flat(params, ema_flat, decay=0.999):
+        """The JAX package's functional form: the tensors ``params`` (in order)
+        flattened into ``ema_flat``'s dtype -> a new ``ema_flat * decay + flat *
+        (1 - decay)``."""
+        flat = torch.cat([p.detach().reshape(-1) for p in params]).to(ema_flat.dtype)
+        return ema_flat * decay + flat * (1 - decay)
+
     def ema_state_dict(self):
         """The average as a ``state_dict`` of the EMA'd network (its buffers as they are)."""
         sd, off = {}, 0
@@ -103,17 +112,28 @@ class BaseSRModel:
         return save_path
 
     @staticmethod
-    def load_network(network, path, param_key="params", strict=True):
-        """Load ``path``'s ``param_key`` (else its ``params``) into ``network``.
-        ``strict=False`` takes the tensors whose name and shape match and leaves
-        the rest as they are (the JAX package's loose merge)."""
+    def load_network_params(path, template, param_key="params", strict=True):
+        """``path``'s ``param_key`` (else its ``params``) -> a ``state_dict`` of
+        ``template``'s names (a module or a ``state_dict``). ``strict``: the file
+        must hold exactly those names at their shapes; else the template's tensor
+        stays where the file lacks the name or has another shape (the JAX
+        package's loose merge)."""
         payload = torch.load(path, map_location="cpu", weights_only=True)
         sd = payload.get(param_key, payload.get("params", payload))
+        own = template.state_dict() if isinstance(template, torch.nn.Module) else template
         if strict:
-            return network.load_state_dict(sd, strict=True)
-        own = network.state_dict()
-        merged = {k: v for k, v in sd.items() if k in own and tuple(v.shape) == tuple(own[k].shape)}
-        return network.load_state_dict({**own, **merged}, strict=True)
+            bad = sorted(set(own) ^ set(sd)) + sorted(
+                k for k in own if k in sd and tuple(sd[k].shape) != tuple(own[k].shape))
+            if bad:
+                raise RuntimeError(f"{path} does not match the network: {bad}")
+        return {k: sd[k] if k in sd and tuple(sd[k].shape) == tuple(v.shape) else v
+                for k, v in own.items()}
+
+    @staticmethod
+    def load_network(network, path, param_key="params", strict=True):
+        """Load :meth:`load_network_params` of ``network`` into it."""
+        return network.load_state_dict(
+            BaseSRModel.load_network_params(path, network, param_key, strict), strict=True)
 
     def save_training_state(self, epoch, current_iter, state):
         d = self.opt["path"]["training_states"]
@@ -127,6 +147,10 @@ class BaseSRModel:
     @staticmethod
     def load_training_state(path):
         return torch.load(path, map_location="cpu", weights_only=True)
+
+    def resume_training_state(self, path):
+        """The JAX package's name: ``{epoch, iter, state}`` of a ``{iter}.state``."""
+        return self.load_training_state(path)
 
     def reduce_loss_dict(self, loss_dict):
         """The losses, read lazily (see :class:`_LazyLossDict`); under data

@@ -4,15 +4,17 @@ reference: basicsr/utils/options.py).
 ``-opt CONF`` (YAML), ``--auto_resume``, ``--debug`` (a ``debug_`` name prefix
 and dense print / save / validation cadence), ``--device`` (``cuda``, the
 default, or ``cpu``; ``opt["device"]``) and the JAX package's
-``--launcher {none, pytorch, slurm, jax}`` / ``--local_rank``. ``pytorch`` joins
+``--launcher {none, pytorch, slurm, jax}`` / ``--local_rank`` / ``--force_yml
+a:b=value`` (a conf value overridden, read as YAML). ``pytorch`` joins
 the process group of ``torchrun``'s environment (``parallel.init_distributed``:
 NCCL on the card, gloo on the CPU); ``slurm`` first maps ``SLURM_PROCID``,
 ``SLURM_NTASKS`` and ``SLURM_LOCALID`` onto that environment; ``jax`` names the
 JAX package's multi-host initialisation and raises. ``opt["rank"]`` /
 ``opt["world_size"]`` are set, each rank takes its own card
 (``LOCAL_RANK``), and the seed is offset by the rank (reference:
-options.py:108-114). The experiment tree goes under ``$GLARE_ROOT`` (default:
-the working directory). ``yaml`` is imported inside :func:`ordered_yaml_load`.
+options.py:108-114). ``num_gpu: auto`` becomes the number of cards this process
+sees (1 with ``--device cpu``). The experiment tree goes under ``$GLARE_ROOT``
+(default: the working directory). ``yaml`` is imported inside :func:`ordered_yaml_load`.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from __future__ import annotations
 import argparse
 import os
 import random
+
+import torch
 
 from ...options.options import _ordered_loader, dict_to_nonedict
 from ...parallel.mesh import init_distributed, local_device
@@ -40,6 +44,8 @@ def parse_options(root_path=None, is_train=True, argv=None):
     parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     parser.add_argument("--launcher", choices=["none", "pytorch", "slurm", "jax"], default="none")
     parser.add_argument("--local_rank", type=int, default=0)
+    parser.add_argument("--force_yml", nargs="+", default=None,
+                        help="Force to update yml files. Examples: train:ema_decay=0.999")
     args = parser.parse_args(argv)
     root_path = root_path or os.environ.get("GLARE_ROOT", os.getcwd())
 
@@ -63,10 +69,26 @@ def parse_options(root_path=None, is_train=True, argv=None):
     if seed is None:
         seed = random.randint(1, 10000)
     opt["manual_seed"] = seed + opt["rank"]
+    if args.force_yml:   # "a:b:c=value", the value read as YAML
+        import yaml
+
+        for entry in args.force_yml:
+            keys, value = (t.strip() for t in entry.split("="))
+            try:
+                value = yaml.safe_load(value)
+            except Exception:
+                pass
+            *path, last = keys.split(":")
+            node = opt
+            for key in path:
+                node = node[key]
+            node[last] = value
     opt["auto_resume"] = args.auto_resume
     opt["is_train"] = is_train
     if args.debug and not opt["name"].startswith("debug"):
         opt["name"] = "debug_" + opt["name"]
+    if opt.get("num_gpu") == "auto":   # the cards this process sees; 1 on the CPU
+        opt["num_gpu"] = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 1
 
     for phase, dataset in (opt.get("datasets") or {}).items():
         dataset["phase"] = phase.split("_")[0]

@@ -102,3 +102,21 @@ def test_get_sr_matches_jax():
     # exact tail, the rest keep their clamp-R value, in both packages
     stats = model.audit_dcn_offsets(lq, radii=(2,))
     assert stats["tap_max"] > 2.0 and stats["pix_frac_exceed"][2] > CAP
+
+
+def test_hybrid_takes_the_jax_base_keyword():
+    """``base`` picks the JAX op's clamp-R base pass (glare_tpu/ops/dcn.py:293-296):
+    "chain" and "pallas" are the same function, the port's one base pass (on the
+    CPU its plain version), held to JAX's "chain"; any other value raises."""
+    x, off, mask, w, b = _inputs(3, 0.45)
+    t = [torch.from_numpy(a) for a in (x, off, mask, w, b)]
+    default = tdcn.modulated_deform_conv_hybrid(*t, max_offset=2, capacity_frac=CAP)
+    want = _jax(x, off, mask, w, b)
+    for base in tdcn.HYBRID_BASES:
+        for fn in (tdcn.modulated_deform_conv_hybrid, tdcn.modulated_deform_conv_hybrid_ref):
+            got = fn(*t, max_offset=2, capacity_frac=CAP, base=base)
+            assert torch.equal(got, default), (fn.__name__, base)
+        assert rel_err(got.numpy(), want) <= TOL
+    for fn in (tdcn.modulated_deform_conv_hybrid, tdcn.modulated_deform_conv_hybrid_ref):
+        with pytest.raises(ValueError, match="'chain' or 'pallas'"):
+            fn(*t, max_offset=2, capacity_frac=CAP, base="xla")

@@ -133,6 +133,22 @@ def test_measure_needs_an_explicit_cpu_without_a_gpu():
         tmeasure.Measure()
 
 
+def test_measure_takes_the_jax_use_gpu_keyword(tmp_path):
+    """``use_gpu`` (glare_tpu/measure.py; cli/infer_paired.py passes False): False is
+    the CPU, True the card; with ``device`` as well it raises."""
+    assert tmeasure.Measure(use_gpu=False).device == torch.device("cpu")
+    assert tmeasure.Measure("alex", False).device == torch.device("cpu")   # JAX's positional order
+    if torch.cuda.is_available():
+        assert tmeasure.Measure(use_gpu=True).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tmeasure.Measure(use_gpu=True)
+    with pytest.raises(ValueError, match="not both"):
+        tmeasure.Measure(use_gpu=False, device="cpu")
+    with pytest.raises(ValueError, match="not both"):
+        tmeasure.measure_dirs(str(tmp_path), str(tmp_path), use_gpu=False, device="cpu")
+
+
 def test_measure_dirs_on_two_png_folders(tmp_path, monkeypatch, capsys):
     cv2 = pytest.importorskip("cv2")
     monkeypatch.setenv("GLARE_LPIPS_NPZ", _seeded_lpips_npz(str(tmp_path / "lpips.npz")))
@@ -151,6 +167,8 @@ def test_measure_dirs_on_two_png_folders(tmp_path, monkeypatch, capsys):
     for g, w in zip(got, want):
         assert g["psnr"] == w["psnr"] and abs(g["ssim"] - w["ssim"]) <= 1e-9
         assert abs(g["lpips"] - w["lpips"]) <= 1e-5 * w["lpips"]
+    # the JAX call's keyword
+    assert tmeasure.measure_dirs(str(tmp_path / "a"), str(tmp_path / "b"), use_gpu=False) == got
 
 
 def test_fid_matches_jax():

@@ -110,3 +110,32 @@ def test_invconv_seeded_init_is_orthogonal():
     m = InvertibleConv1x1(3)
     m.seeded_reset(torch.Generator().manual_seed(0))
     assert (m.weight @ m.weight.t() - torch.eye(3)).abs().max() < 1e-5
+
+
+def test_gaussian_diag_samplers_match_jax(monkeypatch):
+    """``GaussianDiag.sample(generator, mean, logs, eps_std)`` and ``sample_eps``:
+    a seeded generator gives the same draws twice; ``sample`` is ``mean + exp(logs)
+    * eps`` with eps the ``sample_eps`` draw of the same seed; both against JAX's
+    methods fed the same standard-normal draw (``jax.random.normal`` patched)."""
+    from glare_tpu.modules.flow_layers import GaussianDiag as JGD
+    from glare_tpu_torch.modules.flow_layers import GaussianDiag
+
+    rng = np.random.default_rng(4)
+    mean = torch.tensor(rng.standard_normal((2, 3, 5, 4)).astype(np.float32))
+    logs = torch.tensor(0.3 * rng.standard_normal((2, 3, 5, 4)).astype(np.float32))
+    gen = lambda: torch.Generator().manual_seed(7)  # noqa: E731
+    a, b = GaussianDiag.sample(gen(), mean, logs, 0.5), GaussianDiag.sample(gen(), mean, logs, 0.5)
+    assert torch.equal(a, b) and a.shape == mean.shape and a.dtype == mean.dtype
+    eps = GaussianDiag.sample_eps(gen(), mean.shape, 0.5)
+    assert torch.equal(a, mean + torch.exp(logs) * eps)
+    unit = GaussianDiag.sample_eps(gen(), (2, 3, 5, 4))
+    assert torch.equal(eps, unit * 0.5) and unit.dtype == torch.float32
+    assert GaussianDiag.sample_eps(gen(), [4, 2], dtype=torch.float64).dtype == torch.float64
+    wide = GaussianDiag.sample_eps(gen(), (200_000,), 0.3)
+    assert abs(float(wide.std()) - 0.3) < 3e-3 and abs(float(wide.mean())) < 3e-3
+
+    monkeypatch.setattr(jax.random, "normal", lambda key, shape, dtype: jnp.asarray(unit.numpy(), dtype))
+    key = jax.random.PRNGKey(0)
+    want = JGD.sample(key, jnp.asarray(mean.numpy()), jnp.asarray(logs.numpy()), eps_std=0.5)
+    assert rel_err(a.numpy(), np.asarray(want)) <= 1e-6
+    assert np.array_equal(np.asarray(JGD.sample_eps(key, unit.shape, 0.5)), eps.numpy())

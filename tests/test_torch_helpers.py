@@ -346,3 +346,65 @@ def test_random_resize_matches_jax(scale):
         got, want = imgproc.random_resize(a, scale), jax_imgproc.random_resize(a, scale)
         assert got.dtype == want.dtype and np.array_equal(got, want)
 
+
+
+def test_stage1_options_num_gpu_auto_and_force_yml_match_jax(tmp_path):
+    """``num_gpu: auto`` is the count of the devices the process trains on (JAX:
+    ``jax.device_count()``, here the virtual CPU devices the tests' XLA flags make;
+    the port: its cards, 1 with ``--device cpu``); ``--force_yml a:b=value``
+    overrides a conf value read as YAML, as JAX's ``parse_options`` does."""
+    from glare_tpu.sr.utils.options import parse_options as jax_parse
+    from glare_tpu_torch.sr.utils.options import parse_options
+
+    conf = tmp_path / "s1.yml"
+    conf.write_text(yaml.safe_dump({"name": "s1", "num_gpu": "auto", "manual_seed": 3,
+                                    "train": {"ema_decay": 0.9, "optim_g": {"lr": 1e-4}}}))
+    argv = ["-opt", str(conf), "--force_yml", "train:ema_decay=0.999", "train:optim_g:lr=2e-4"]
+    got, _ = parse_options(str(tmp_path), is_train=False, argv=argv + ["--device", "cpu"])
+    want, _ = jax_parse(str(tmp_path), is_train=False, argv=argv)
+    assert got["num_gpu"] == 1 and want["num_gpu"] == jax.device_count()
+    assert got["train"]["ema_decay"] == want["train"]["ema_decay"] == 0.999
+    assert got["train"]["optim_g"]["lr"] == want["train"]["optim_g"]["lr"] == "2e-4"   # YAML 1.1
+
+
+def test_stage1_base_model_jax_names(tmp_path):
+    """``BaseSRModel.load_network_params`` (strict and loose), ``resume_training_state``,
+    ``model_ema_flat`` (against JAX's on the same tensors) and
+    ``VQWeightDehazeNet.codebook_scale`` (against the flax property)."""
+    from glare_tpu.sr.archs.vq_weight_arch import VQWeightDehazeNet as JNet
+    from glare_tpu.sr.models.base_model import BaseSRModel as JBase
+    from glare_tpu_torch.sr.archs.vq_weight_arch import VQWeightDehazeNet
+    from glare_tpu_torch.sr.models.base_model import BaseSRModel
+
+    base = BaseSRModel({"path": {"models": str(tmp_path / "m"), "training_states": str(tmp_path / "s")}},
+                       device="cpu")
+    net = torch.nn.Sequential(torch.nn.Linear(3, 4), torch.nn.Linear(4, 2))
+    path = base.save_network([net.state_dict()], "g", 7)
+    other = torch.nn.Sequential(torch.nn.Linear(3, 4), torch.nn.Linear(4, 2))
+    loaded = base.load_network_params(path, other)
+    assert all(torch.equal(loaded[k], v) for k, v in net.state_dict().items())
+    wider = torch.nn.Sequential(torch.nn.Linear(3, 4), torch.nn.Linear(4, 5))
+    with pytest.raises(RuntimeError, match="1.weight"):
+        base.load_network_params(path, wider)
+    loose = base.load_network_params(path, wider, strict=False)
+    assert torch.equal(loose["0.weight"], net[0].weight) and torch.equal(loose["1.weight"], wider[1].weight)
+
+    state = {"iter": torch.tensor(3)}
+    base.save_training_state(1, 5, state)
+    payload = base.resume_training_state(str(tmp_path / "s" / "5.state"))
+    assert payload["epoch"] == 1 and payload["iter"] == 5 and torch.equal(payload["state"]["iter"], state["iter"])
+
+    params = [p.detach().clone() for p in net.parameters()]
+    ema = torch.arange(sum(p.numel() for p in params), dtype=torch.float32) / 10
+    got = BaseSRModel.model_ema_flat(params, ema, decay=0.9)
+    # JAX ravels a dict in sorted key order: name the leaves so that it keeps this one
+    tree = {f"p{i}": jnp.asarray(p.numpy()) for i, p in enumerate(params)}
+    want = JBase.model_ema_flat(tree, jnp.asarray(ema.numpy()), decay=0.9)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+    base.init_ema(net)
+    base.ema_flat.copy_(ema)
+    base.model_ema(0.9)
+    assert torch.allclose(base.ema_flat, got, rtol=1e-6, atol=1e-7)
+
+    kw = dict(gt_resolution=32, codebook_params=((8, 64, 64),))
+    assert VQWeightDehazeNet(**kw).codebook_scale == JNet(**kw).codebook_scale == 8

@@ -241,3 +241,317 @@ def test_every_public_name_of_the_jax_package_has_a_counterpart():
     assert not gaps, f"public names of glare_tpu with no counterpart in the port: {gaps}"
     assert not stale, f"NOT_PORTED names that are ported, or gone from glare_tpu: {stale}"
     assert len(list(_jax_modules())) > 80
+
+
+# ---------------------------------------------------------------------------
+# Parameters and methods (by AST only). For each public function of a glare_tpu
+# module, and each public method of a public class (``__init__`` and ``__call__``
+# included; a flax ``__call__`` is the port's ``forward``), every parameter name is
+# accepted by the port's counterpart (a ``**kwargs`` there does not count); every
+# field of a flax / dataclass is accepted by the port class's ``__init__``; every
+# public method exists in the port class: defined there, inherited from a port
+# base, or assigned as ``self.<name>`` in ``__init__`` (flax properties).
+# Differences that are only idiom are listed below, each as {JAX name: the port's
+# name for it, or None}, with the reason; ROADMAP.md's "Not ported, and why"
+# mirrors the categories. A listed name that is no longer a gap fails the test.
+# ---------------------------------------------------------------------------
+
+IDIOM = {}
+
+
+def _idiom(rel, quals, names):
+    for q in quals.split():
+        IDIOM.setdefault((rel, q), {}).update(names)
+
+
+# JAX threads explicit PRNG keys; the port draws from a caller's torch.Generator
+_idiom("modules/flow_layers.py", "GaussianDiag.sample GaussianDiag.sample_eps", {"key": "generator"})
+_idiom("modules/flow_upsampler.py", "FlowUpsamplerNet.__call__ FlowUpsamplerNet.decode",
+       {"rng": "generator"})
+_idiom("modules/split.py", "Split2d.__call__", {"rng": "generator"})
+_idiom("modules/llflow_vqgan2.py", "LLFlowVQGAN2.normal_flow", {"noise_rng": "generator"})
+_idiom("modules/quantize.py", "remap_to_used", {"rng": "generator"})
+_idiom("sr/losses.py", "gradient_penalty_loss", {"rng": "generator"})
+
+# flax parameter trees passed by value: the port's modules and models hold their
+# own tensors (a torch module, a state_dict, the model's flat EMA)
+_idiom("modules/quantize.py", "VectorQuantizer2.get_codebook_entry GumbelQuantize.get_codebook_entry",
+       {"params": None})
+_idiom("models/base_model.py", "BaseModel.save_network BaseModel.get_network_description",
+       {"params": "network"})
+_idiom("models/base_model.py", "BaseModel.save_training_state", {"state_pytree": "state"})
+# flax deserialises into a template tree; torch.load needs none
+_idiom("models/base_model.py", "BaseModel.load_training_state", {"template_state": None})
+_idiom("sr/models/base_model.py", "BaseSRModel.resume_training_state", {"template_state": None})
+_idiom("sr/models/base_model.py", "BaseSRModel.save_network", {"param_dicts": "state_dicts"})
+_idiom("sr/models/base_model.py", "BaseSRModel.model_ema", {"params": None, "ema_params": None})
+# the torch training API: DDP / FSDP2 wrap the network, the caller's loop runs the
+# step and the optimizer (no step_fn, no parameter or optimizer tree, no axis names)
+_idiom("parallel/mesh.py", "make_dp_train_step", {"step_fn": None})
+_idiom("parallel/mesh.py", "make_fsdp_train_step",
+       {"step_fn": None, "params": None, "opt_state": None, "n_batch_args": None,
+        "data_axis": None, "param_axes": None})
+
+# flax layer fields: flax infers the input width, names the output width
+# `features`, strides `strides`, the bias `use_bias`, normalisation's epsilon
+# `epsilon`; the port's layers take torch's (in, out, stride, bias, eps). `dtype` is
+# the flax compute dtype: the port's modules compute in their weights' dtype, set
+# by `.to()` / `set_compute_dtype` / `inference_dtype`. Dropout and BatchNorm
+# follow `.train()` / `.eval()` (no `deterministic` / `use_running_average`).
+_DTYPE = {
+    "modules/condition_encoder.py": "ConEncoder1",
+    "modules/deformable_decoder.py": "DCNv2Pack WarpBlock MultiScaleDecoder2",
+    "modules/encoder_decoder.py": "Encoder Decoder",
+    "modules/legacy_archs.py": "ResidualDenseBlock5C RRDB RRDBNet Conv2D ConvTranspose2D ConvBNRelu "
+                               "DoubleConv ChannelAttention SpatialAttention CBAM ResConv MSIA ColorEncoder",
+    "modules/llflow_vqgan2.py": "LLFlowVQGAN2",
+    "modules/vqllflow_deformable.py": "VQLLFLOWDeformable",
+    "modules/vqmodel.py": "VQModel",
+    "nn/layers.py": "Conv Upsample Downsample ResnetBlock AttnBlock ResBlockGN",
+    "sr/archs/arch_util.py": "ResidualBlockNoBN Upsample",
+    "sr/archs/ridcp_utils.py": "ResBlock CombineQuantBlock",
+    "sr/archs/swin.py": "WindowAttention Mlp SwinTransformerBlock BasicLayer RSTB SwinLayers",
+    "sr/archs/swinir_arch.py": "SwinIR",
+    "sr/archs/vgg_arch.py": "VGGFeatureExtractor",
+    "sr/archs/vq_weight_arch.py": "MultiScaleEncoder DecoderBlock WarpBlock MultiScaleDecoder "
+                                  "VQWeightDehazeNet",
+    "models/networks.py": "define_Flow find_vqgan",
+}
+for _rel, _quals in _DTYPE.items():
+    _idiom(_rel, _quals, {"dtype": None})
+_idiom("nn/layers.py", "Conv", {"features": "out_channels", "strides": "stride", "use_bias": "bias",
+                                "kernel_init": None, "feature_group_count": None})
+_idiom("nn/layers.py", "GroupNorm32", {"epsilon": "eps"})
+_idiom("nn/layers.py", "ResnetBlock", {"deterministic": None})
+_idiom("modules/flow_layers.py", "Conv2dNormed Conv2dZeros", {"features": "out_channels"})
+_idiom("modules/legacy_archs.py", "Conv2D", {"features": "out_channels", "strides": "stride"})
+_idiom("modules/legacy_archs.py", "ConvTranspose2D DoubleConv", {"features": "out_channels"})
+_idiom("modules/legacy_archs.py", "ConvBNRelu ResConv",
+       {"features": "out_channels", "use_running_average": None})
+_idiom("modules/quantize.py", "GumbelQuantize.__call__", {"deterministic": None})
+_idiom("sr/archs/discriminator_arch.py", "SNConv",
+       {"features": "out_channels", "strides": "stride", "use_bias": "bias"})
+_idiom("sr/archs/vq_weight_arch.py", "DecoderBlock", {"out_channels": "out_channel"})
+
+# TPU-only knobs: Pallas block sizes and interpret mode, the lax.map chunking of
+# the JAX DCN, the XLA / Pallas backend switches, the stock Pallas flash kernel
+# (the port's GLARE_ATTN_FLASH routes to its fused kernel, `use_fused`) and the
+# unrolled fori_loop; the CUDA kernels have no such knob
+_idiom("ops/attn_pallas.py", "flash_attention_nhc", {"bq": None, "bk": None, "interpret": None})
+_idiom("ops/dcn.py", "modulated_deform_conv_hybrid", {"pixels_per_chunk": None})
+_idiom("ops/vq.py", "nearest_code", {"backend": None})
+_idiom("modules/quantize.py", "VectorQuantizer2", {"backend": None})
+_idiom("modules/vqmodel.py", "VQModel", {"vq_backend": None})
+_idiom("models/networks.py", "find_vqgan", {"vq_backend": None})
+_idiom("modules/deformable_decoder.py", "DCNv2Pack", {"pixels_per_chunk": None})
+_idiom("modules/deformable_decoder.py", "WarpBlock", {"dcn_pixels_per_chunk": None})
+_idiom("nn/layers.py", "AttnBlock", {"use_flash": "use_fused", "unroll_chunks": None})
+
+# the port's DCN op is the 3x3 "same" convolution every DCN of the model uses
+_idiom("ops/dcn.py", "modulated_deform_conv",
+       {"stride": None, "padding": None, "dilation": None, "pixels_per_chunk": None})
+# the JAX module's __call__ takes x_latent and mid_feat and reads neither
+_idiom("modules/vqllflow_deformable.py", "VQLLFLOWDeformable.__call__", {"x_latent": None, "mid_feat": None})
+# the reference's nn.Sequential: torch's forward
+_idiom("sr/archs/arch_util.py", "Upsample", {"__call__": None})
+
+
+def _parsed(path, _cache={}):
+    if path not in _cache:
+        _cache[path] = ast.parse(open(path).read(), path) if os.path.exists(path) else None
+    return _cache[path]
+
+
+def _imported_module(root, path, node):
+    """The file an ImportFrom inside the package ``root`` names (None: outside it)."""
+    if node.level:
+        base = os.path.dirname(path)
+        for _ in range(node.level - 1):
+            base = os.path.dirname(base)
+        parts = node.module.split(".") if node.module else []
+    elif node.module and node.module.split(".")[0] == os.path.basename(root):
+        base, parts = root, node.module.split(".")[1:]
+    else:
+        return None
+    p = os.path.join(base, *parts)
+    return os.path.join(p, "__init__.py") if os.path.isdir(p) else p + ".py"
+
+
+def _find(root, path, name, depth=0):
+    """(file, def or class node) that ``name`` is bound to in module ``path``,
+    through the package's imports and plain aliases; None when it is bound to
+    something outside the package or to no def."""
+    tree = _parsed(path)
+    if tree is None or depth > 6:
+        return None
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)) and node.name == name:
+            return path, node
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            for a in node.names:
+                if (a.asname or a.name) == name:
+                    mod = _imported_module(root, path, node)
+                    return _find(root, mod, a.name, depth + 1) if mod else None
+        elif isinstance(node, ast.Assign) and isinstance(node.value, ast.Name):
+            if any(isinstance(t, ast.Name) and t.id == name for t in node.targets):
+                return _find(root, path, node.value.id, depth + 1)
+    return None
+
+
+def _params(fn):
+    """-> (parameter names without self / cls, has *args, has **kwargs)."""
+    a = fn.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    if names and names[0] in ("self", "cls"):
+        names = names[1:]
+    return names, a.vararg is not None, a.kwarg is not None
+
+
+def _class(root, path, cls):
+    """-> (methods by name, dataclass fields, names set as self.<name> in
+    ``__init__``), through the bases the package defines."""
+    methods, fields, attrs = {}, [], set()
+    for b in cls.bases:
+        found = _find(root, path, b.id) if isinstance(b, ast.Name) else None
+        if found and isinstance(found[1], ast.ClassDef):
+            m, f, s = _class(root, *found)
+            methods.update(m)
+            fields += [x for x in f if x not in fields]
+            attrs |= s
+    for node in cls.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            methods[node.name] = node
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            if node.target.id not in fields:
+                fields.append(node.target.id)
+            attrs.add(node.target.id)
+        elif isinstance(node, ast.Assign):
+            attrs |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    init = methods.get("__init__")
+    for n in ast.walk(init) if init is not None else ():
+        if isinstance(n, ast.Attribute) and isinstance(n.ctx, ast.Store) and \
+                isinstance(n.value, ast.Name) and n.value.id == "self":
+            attrs.add(n.attr)
+    return methods, fields, attrs
+
+
+def _is_flax(path, cls):
+    for b in cls.bases:
+        if ast.unparse(b) in ("nn.Module", "linen.Module"):
+            return True
+        found = _find(JAX_PKG, path, b.id) if isinstance(b, ast.Name) else None
+        if found and isinstance(found[1], ast.ClassDef) and _is_flax(*found):
+            return True
+    return False
+
+
+def _missing(want, fn):
+    """Parameters of the JAX function ``want`` that the port's ``fn`` does not take."""
+    names, var, kw = _params(want)
+    have, pvar, pkw = _params(fn)
+    out = [n for n in names if n not in have]
+    if var and not pvar:
+        out.append("*" + want.args.vararg.arg)
+    if kw and not pkw:
+        out.append("**" + want.args.kwarg.arg)
+    return out, set(have)
+
+
+def _api_gaps():
+    """-> {(module, qualified name): {JAX name: set of the port's accepted names}}."""
+    gaps = {}
+
+    def gap(rel, qual, names, have):
+        for n in names:
+            gaps.setdefault((rel, qual), {})[n] = have
+
+    for rel in _jax_modules():
+        jpath = os.path.join(JAX_PKG, rel)
+        ppath = os.path.join(PKG, PORT_FILE.get(rel, rel))
+        skip = NOT_PORTED.get(rel, set())
+        for node in _parsed(jpath).body:
+            name = getattr(node, "name", "_")
+            if name.startswith("_") or name in skip or not isinstance(
+                    node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                continue
+            found = _find(PKG, ppath, name)
+            if found is None:
+                gap(rel, name, ["<not a def or class of the port>"], set())
+                continue
+            if not isinstance(node, ast.ClassDef):
+                fn = found[1]
+                if isinstance(fn, ast.ClassDef):
+                    fn = _class(PKG, *found)[0].get("__init__")
+                if fn is None:
+                    gap(rel, name, ["<no __init__>"], set())
+                else:
+                    gap(rel, name, *_missing(node, fn))
+                continue
+            if not isinstance(found[1], ast.ClassDef):
+                gap(rel, name, ["<not a class in the port>"], set())
+                continue
+            methods, fields, attrs = _class(PKG, *found)
+            init = methods.get("__init__")
+            accepts = set(_params(init)[0]) if init is not None else set(fields)
+            flax = _is_flax(jpath, node)
+            if flax or any("dataclass" in ast.unparse(d) for d in node.decorator_list):
+                jfields = [f for f in _class(JAX_PKG, jpath, node)[1] if f not in ("parent", "name")]
+                gap(rel, name, [f for f in jfields if f not in accepts], accepts)
+            for m in node.body:
+                if not isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    continue
+                if m.name == "__call__":
+                    port_m = methods.get("forward") or methods.get("__call__")
+                elif m.name == "__init__":
+                    port_m = init
+                elif m.name.startswith("_") or (flax and m.name == "setup"):
+                    continue
+                else:
+                    port_m = methods.get(m.name)
+                    if port_m is None and m.name in attrs:
+                        continue
+                if port_m is None:
+                    gap(rel, name, [m.name], set(methods) | attrs)
+                else:
+                    gap(rel, f"{name}.{m.name}", *_missing(m, port_m))
+    return gaps
+
+
+def test_every_jax_parameter_field_and_method_has_a_counterpart_in_the_port():
+    gaps, stale = {}, {}
+    found = _api_gaps()
+    for key, names in found.items():
+        allowed = IDIOM.get(key, {})
+        for n, have in names.items():
+            if n not in allowed:
+                gaps.setdefault(key, []).append(n)
+            elif allowed[n] is not None and allowed[n] not in have:
+                gaps.setdefault(key, []).append(f"{n} (the port's {allowed[n]!r} is missing too)")
+    for key, allowed in IDIOM.items():
+        for n in allowed:
+            if n not in found.get(key, {}):
+                stale.setdefault(key, []).append(n)
+    assert not gaps, f"JAX parameters / fields / methods the port does not take or have: {gaps}"
+    assert not stale, f"IDIOM entries that are no longer a difference (or gone from glare_tpu): {stale}"
+    assert sum(len(v) for v in found.values()) > 50   # the walk saw the package
+
+
+def _cli_flags(path):
+    return {a.value for n in ast.walk(_parsed(path)) if isinstance(n, ast.Call)
+            and getattr(n.func, "attr", "") == "add_argument"
+            for a in n.args if isinstance(a, ast.Constant) and isinstance(a.value, str)}
+
+
+def test_every_jax_cli_flag_is_a_port_flag():
+    """Each ``add_argument`` flag of a glare_tpu module is one of its port counterpart's."""
+    gaps, n = {}, 0
+    for rel in _jax_modules():
+        want = _cli_flags(os.path.join(JAX_PKG, rel))
+        n += len(want)
+        port = os.path.join(PKG, PORT_FILE.get(rel, rel))
+        have = _cli_flags(port) if want and os.path.exists(port) else set()
+        if want - have:
+            gaps[rel] = sorted(want - have)
+    assert not gaps, f"JAX command-line flags the port does not take: {gaps}"
+    assert n > 15   # the walk saw the CLIs

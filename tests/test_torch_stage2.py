@@ -146,6 +146,10 @@ def test_gaussian_diag_and_training_only_options():
                                          noise=torch.rand(gt.shape, generator=g))
         _, _, logdet2 = net.normal_flow(gt, lr, add_gt_noise=True, noise=torch.full_like(gt, 0.5))
         assert not torch.equal(z1, z)
+        # without noise, drawn from the caller's generator (the JAX method's noise_rng)
+        z3 = net.normal_flow(gt, lr, add_gt_noise=True, generator=torch.Generator().manual_seed(3))[0]
+        u = torch.rand(gt.shape, generator=torch.Generator().manual_seed(3))
+        assert torch.equal(z3, net.normal_flow(gt, lr, add_gt_noise=True, noise=u)[0])
         assert torch.allclose(logdet2 - logdet, torch.full((2,), -np.log(32.0) * 16), rtol=1e-5)
         _, ld = net.reverse_flow(lr, add_gt_noise=True)
         assert torch.allclose(ld - net.reverse_flow(lr)[1], torch.full((2,), np.log(32.0) * 256))
@@ -171,6 +175,41 @@ def test_state_dict_has_the_reference_names_and_round_trips(pair, tmp_path):
     # the confs name the JAX package's .flax files: the port reads the .pth beside them
     other.load_network(str(tmp_path / "7_G.flax"))
     assert torch.equal(other.get_sr(lq), model.get_sr(lq))
+
+
+def test_load_and_network_description(pair, tmp_path):
+    """``load()``: the ``{iter}_G`` beside the newest resume state, else
+    ``path.pretrain_model_G`` under ``path.strict_load`` (glare_tpu/models/
+    llflow_model.py:265); ``get_network_description`` -> (class name, parameter count)."""
+    model, lq = pair[4], pair[5]
+    sd = model.netG.state_dict()
+    path = str(tmp_path / "pre_G.pth")
+    torch.save({k: v for k, v in sd.items() if not k.startswith("RRDB.")}, path)
+    for strict_load in (True, False):
+        other = create_model({**_opt(), "path": {"pretrain_model_G": path, "strict_load": strict_load}},
+                             device="cpu")
+        rrdb0 = other.netG.RRDB.state_dict()
+        if strict_load:
+            with pytest.raises(RuntimeError, match="RRDB"):
+                other.load()
+            continue
+        other.load()
+        got = other.netG.state_dict()
+        assert all(torch.equal(got[k], v) for k, v in sd.items() if not k.startswith("RRDB."))
+        assert all(torch.equal(other.netG.RRDB.state_dict()[k], v) for k, v in rrdb0.items())
+    # a resume state wins, loaded strictly
+    states, models = tmp_path / "training_state", tmp_path / "models"
+    os.makedirs(states)
+    (states / "3.state").write_bytes(b"")
+    os.makedirs(models)
+    torch.save(sd, str(models / "3_G.pth"))
+    other = create_model({**_opt(), "path": {"resume_state": "auto", "training_state": str(states),
+                                             "pretrain_model_G": path}}, device="cpu")
+    other.load()
+    assert torch.equal(other.get_sr(lq), model.get_sr(lq))
+    name, n = model.get_network_description()
+    assert name == "LLFlowModel" and n == sum(p.numel() for p in model.netG.parameters()) > 0
+    assert model.get_network_description(model.net_hq)[1] == sum(p.numel() for p in model.net_hq.parameters())
 
 
 def _write_pairs(root, n, h, w, seed):

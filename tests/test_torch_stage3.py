@@ -20,6 +20,8 @@ flow and two DCNs, and rounding differences of 1e-6 grow along it. The codebook
 indices must not flip at all (checked stage-wise on the JAX latent).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -167,3 +169,66 @@ def test_get_z_and_get_sr_with_z_shapes():
     sr, z = model.get_sr_with_z(lq, heat=0.5, seed=3)
     assert sr.shape == (1, 32, 32, 3) and z.shape == (1, 4, 4, 192)
     assert float(z.std()) > 0 and float(model.get_z(0, lr_shape=lq.shape).abs().max()) == 0
+
+
+def test_load_and_network_description(tmp_path):
+    """``load()`` (glare_tpu/models/vqllflowd_model.py:662): the ``{iter}_G`` beside
+    the newest resume state, strictly, else ``path.pretrain_model_G``, never strictly
+    (a stage-2 file lacks the AFT decoder); ``get_network_description``."""
+    src = create_model({**_opt("xla"), "train": {"manual_seed": 5}}, device="cpu")
+    sd = src.netG.state_dict()
+    pre = str(tmp_path / "stage2_G.pth")
+    torch.save({k: v for k, v in sd.items() if not k.startswith("deformable_decoder.")}, pre)
+    model = create_model({**_opt("xla"), "path": {"pretrain_model_G": pre, "strict_load": True}},
+                         device="cpu")
+    aft0 = {k: v.clone() for k, v in model.netG.deformable_decoder.state_dict().items()}
+    model.load()
+    got = model.netG.state_dict()
+    assert all(torch.equal(got[k], v) for k, v in sd.items() if not k.startswith("deformable_decoder."))
+    assert all(torch.equal(model.netG.deformable_decoder.state_dict()[k], v) for k, v in aft0.items())
+    os.makedirs(tmp_path / "training_state")
+    os.makedirs(tmp_path / "models")
+    (tmp_path / "training_state" / "5.state").write_bytes(b"")
+    torch.save({k: v for k, v in sd.items() if k != "deformable_decoder.residual_conv.bias"},
+               str(tmp_path / "models" / "5_G.pth"))
+    model.opt["path"].update({"resume_state": "auto", "training_state": str(tmp_path / "training_state")})
+    with pytest.raises(RuntimeError, match="residual_conv.bias"):
+        model.load()   # the resume model is loaded strictly
+    torch.save(sd, str(tmp_path / "models" / "5_G.pth"))
+    model.load()
+    assert all(torch.equal(model.netG.state_dict()[k], v) for k, v in sd.items())
+    assert model.get_network_description() == (
+        "VQLLFLOWDModel", sum(p.numel() for p in model.netG.parameters()))
+
+
+def test_infer_unpaired_cli_on_an_odd_sized_png(tmp_path, monkeypatch):
+    """``python -m glare_tpu_torch.cli.infer_unpaired --opt CONF --device cpu`` on a
+    37x29 PNG (reflect-padded to 48x32): the file is written under
+    ``results/<conf>/unpaired/``, of the input's shape, equal to ``enhance_image``."""
+    import sys
+
+    import cv2
+    import yaml
+
+    from glare_tpu_torch.cli import infer_unpaired
+    from glare_tpu_torch.cli.infer_paired import load_model
+    from glare_tpu_torch.utils.imgproc import imread
+
+    weights = str(tmp_path / "net_G.pth")
+    torch.save(create_model(_opt("pallas"), device="cpu").netG.state_dict(), weights)
+    os.makedirs(tmp_path / "photos")
+    rng = np.random.default_rng(8)
+    src = str(tmp_path / "photos" / "odd.png")
+    cv2.imwrite(src, rng.integers(0, 90, (29, 37, 3), dtype=np.uint8))
+    conf = tmp_path / "mini_unpaired.yml"
+    conf.write_text(yaml.safe_dump({**_opt("pallas"), "name": "mini", "model_path": weights,
+                                    "dataroot_unpaired": str(tmp_path / "photos"),
+                                    "datasets": {"train": {"quant": 32, "log_low": True}}}))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(sys, "argv", ["infer_unpaired", "--opt", str(conf), "--device", "cpu"])
+    infer_unpaired.main()
+    out = imread(str(tmp_path / "results" / "mini_unpaired" / "unpaired" / "odd.png"))
+    assert out.shape == (29, 37, 3) and out.dtype == np.uint8
+    model, opt = load_model(str(conf), device="cpu")
+    assert np.array_equal(out, infer_unpaired.enhance_image(model, imread(src), apply_log=True))
+    assert out.std() > 0

@@ -203,6 +203,57 @@ def port_run(jax_run):
             "frozen0": frozen0, "grid_gap": grid_gap}
 
 
+@pytest.mark.parametrize("is_train", [True, False])
+@pytest.mark.parametrize("remat", ["absent", True, False])
+def test_define_flow_reads_remat_as_jax_does(is_train, remat):
+    """``network_G.remat`` and its default (on when training with a DCN other than
+    the chain op), against JAX's ``define_Flow`` (flax modules constructed only)."""
+    from glare_tpu.models.networks import define_Flow as jax_define_flow
+    from glare_tpu_torch.models.networks import define_Flow
+
+    for dcn_impl in (None, "chain", "xla", "pallas"):
+        net_g = {"which_model_G": "VQLLFLOWDeformable", "flow": {"K": 1, "L": 1}, **MINI}
+        if dcn_impl is not None:
+            net_g["dcn_impl"] = dcn_impl
+        if remat != "absent":
+            net_g["remat"] = remat
+        opt = {"is_train": is_train, "network_G": net_g}
+        want = jax_define_flow(opt).remat
+        got = define_Flow(opt).deformable_decoder.remat
+        assert got == want, (dcn_impl, got, want)
+        if remat == "absent":
+            assert want == (is_train and dcn_impl not in (None, "chain"))
+
+
+def test_remat_step_equals_the_plain_step(jax_run, port_run, monkeypatch):
+    """A step with ``network_G.remat`` (every ResnetBlock, AttnBlock and WarpBlock
+    of the AFT decoder recomputed in the backward) gives the first step's losses
+    and gradients of the plain model (``port_run``) on the CPU."""
+    from glare_tpu_torch.modules import deformable_decoder as dd
+    from glare_tpu_torch.nn.layers import AttnBlock, ResnetBlock
+
+    wrapped = []
+    checkpoint = dd.checkpoint
+    monkeypatch.setattr(dd, "checkpoint", lambda block, *a, **k: wrapped.append(type(block)) or
+                        checkpoint(block, *a, **k))
+    opt = _opt()
+    opt["network_G"]["remat"] = True
+    model = create_model(opt, device="cpu")
+    assert model.netG.deformable_decoder.remat
+    model.load_state_dicts(convert.flax_to_torch_stage3(jax_run["net_p"]),
+                           convert.flax_to_torch_vqgan(jax_run["vq_p"]))
+    model.perceptual = port_run["model"].perceptual
+    lq, gt = jax_run["batches"][0]
+    losses = list(model.optimize_parameters({"LQ": lq, "GT": gt}, None))
+    blocks = [type(m) for m in model.netG.deformable_decoder.modules()
+              if isinstance(m, (ResnetBlock, AttnBlock, dd.WarpBlock))]
+    assert sorted(map(str, wrapped)) == sorted(map(str, blocks)) and AttnBlock in wrapped
+    np.testing.assert_allclose(losses, port_run["losses"][0], rtol=1e-6, atol=0)
+    for n, p in model.trainable_parameters():
+        want = port_run["grads"][0][n]
+        assert float((p.grad - want).abs().max()) <= 1e-6 * max(float(want.abs().max()), 1e-30), n
+
+
 def _max_rel(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
@@ -405,6 +456,26 @@ def test_msssim_and_perceptual_match_jax():
     assert got == pytest.approx(want, rel=1e-5)
 
 
+def test_load_vgg16_params_takes_the_jax_rng_seed(monkeypatch):
+    """``rng_seed`` is the JAX name of ``seed``; ``features(x=)`` the JAX keyword."""
+    from glare_tpu_torch.modules import losses
+
+    monkeypatch.delenv("GLARE_VGG16_NPZ", raising=False)
+    monkeypatch.setattr(losses, "probe_torch_vgg16_cache", lambda: None)
+    with pytest.warns(UserWarning, match="RANDOM VGG"):
+        by_jax_name, source = losses.load_vgg16_params(rng_seed=3, return_source=True)
+        by_port_name = losses.load_vgg16_params(seed=3)
+        other = losses.load_vgg16_params(rng_seed=4)
+    assert source == "random" and by_jax_name.keys() == by_port_name.keys()
+    assert all(torch.equal(by_jax_name[k], by_port_name[k]) for k in by_jax_name)
+    assert not torch.equal(by_jax_name["convs.0.weight"], other["convs.0.weight"])
+    with pytest.raises(ValueError, match="not both"):
+        losses.load_vgg16_params(seed=1, rng_seed=2)
+    net = PerceptualNetwork(params=by_jax_name)
+    x = torch.rand(1, 16, 16, 3)
+    assert all(torch.equal(a, b) for a, b in zip(net.features(x=x), net.features(x)))
+
+
 def test_groupnorm_bf16_io_matches_jax(monkeypatch):
     """GLARE_GN_BF16=1 on bf16 input: float32 statistics, a bf16 result. Both
     round the same float32 value to bf16, so they may differ by one bf16 ulp
@@ -429,6 +500,7 @@ def test_groupnorm_bf16_io_matches_jax(monkeypatch):
     assert np.abs(got - want).max() <= 2.0 ** -8 * np.abs(want).max()
     monkeypatch.setenv("GLARE_GN_BF16", "0")
     assert not GroupNorm32(64).bf16_io
+    assert GroupNorm32(64, bf16_io=True).bf16_io   # the JAX module's field beats the variable
 
 
 def _write_folder(root, names, rng, size=48):
@@ -442,10 +514,71 @@ def _write_folder(root, names, rng, size=48):
         cv2.imwrite(os.path.join(root, "low", n), (hi * 0.1).astype(np.uint8))
 
 
+class _Writer:
+    """A tensorboard writer that records (tag, step, value)."""
+
+    def __init__(self, log_dir=None):
+        self.log_dir, self.scalars, self.closed = log_dir, [], False
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, int(step), float(value)))
+
+    def close(self):
+        self.closed = True
+
+
+class _JaxStubModel:
+    """What ``glare_tpu/cli/train.py`` calls on a stage-3 model, with the JAX
+    model's loss names (``VQLLFLOWDModel.optimize_parameters``): the JAX loop's
+    tensorboard tags and steps without a JAX training step."""
+
+    def __init__(self, opt):
+        self.log_dict = {}
+
+    def optimize_parameters(self, feed, step):
+        self.log_dict = {"total_loss": 1.0, "l1_loss": 0.1, "percep_loss": 0.2, "ssim_loss": 0.3}
+
+    def get_current_log(self):
+        return self.log_dict
+
+    def schedule(self, step):
+        return 5e-5
+
+    def get_sr(self, lq):
+        return np.clip(np.exp(np.asarray(lq)) * 4, 0, 1)
+
+    def save(self, label):
+        pass
+
+    def save_training(self, epoch, step):
+        pass
+
+
+def _jax_loop_scalars(conf, root, monkeypatch):
+    """The JAX training loop on ``conf`` with :class:`_JaxStubModel` and a stub
+    ``tensorboardX`` -> its (tag, step) pairs."""
+    import sys
+    import types
+
+    from glare_tpu.cli import train as jtrain
+
+    writers = []
+    tbx = types.ModuleType("tensorboardX")
+    tbx.SummaryWriter = lambda log_dir: writers.append(_Writer(log_dir)) or writers[-1]
+    monkeypatch.setitem(sys.modules, "tensorboardX", tbx)
+    monkeypatch.setattr(jtrain, "create_model", _JaxStubModel)
+    monkeypatch.setenv("GLARE_ROOT", str(root))
+    jtrain.main(stage=3, argv=["--opt", str(conf), "--niter", "2"])
+    assert len(writers) == 1 and writers[0].log_dir.endswith(os.path.join("tstage3_jax", "tb_logger"))
+    return [(tag, step) for tag, step, _ in writers[0].scalars]
+
+
 def test_cli_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
     """cli.train --device cpu --niter 2 on a synthetic LOL folder (mini network,
     32 px crops): 2_G.pth and 2.state; the inference CLI's loader takes the .pth;
-    a resume restores the step and the optimizer."""
+    a resume restores the step and the optimizer. With ``use_tb_logger`` (a stub
+    writer) it writes the JAX loop's tags at the JAX loop's steps (that loop run
+    on the same conf with a stub model)."""
     from glare_tpu_torch.cli import infer_paired, train
 
     rng = np.random.default_rng(9)
@@ -463,12 +596,25 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
         "logger": {"print_freq": 1, "save_checkpoint_freq": 2},
     })
     opt["train"].update({"niter": 40000, "val_freq": 2, "lr_steps_rel": [0.5, 0.75]})
+    opt["use_tb_logger"] = True
+    jax_conf = tmp_path / "train_jax.yml"
+    jax_conf.write_text(yaml.safe_dump({**opt, "name": "tstage3_jax"}))
+    want = _jax_loop_scalars(jax_conf, tmp_path / "jax", monkeypatch)
     conf = tmp_path / "train.yml"
     conf.write_text(yaml.safe_dump(opt))
     monkeypatch.setenv("GLARE_ROOT", str(tmp_path))
+    writers = []
+    monkeypatch.setattr(train, "init_tb_logger", lambda log_dir: writers.append(_Writer(log_dir)) or writers[-1])
     model, step = train.main(argv=["--opt", str(conf), "--niter", "2", "--device", "cpu"])
     root = tmp_path / "experiments" / "tstage3_torch"
     assert step == 2 and model.updates == 2
+    assert len(writers) == 1 and writers[0].log_dir == str(root / "tb_logger") and writers[0].closed
+    got = writers[0].scalars
+    assert [(tag, s) for tag, s, _ in got] == want, (got, want)
+    assert {t for t, _ in want} == {"loss/total_loss", "loss/l1_loss", "loss/percep_loss", "loss/ssim_loss",
+                                   "lr", "time/iteration", "time/data", "eta_h", "val/psnr"}
+    assert all(np.isfinite(v) for _, _, v in got) and all(v >= 0 for t, _, v in got if t.startswith("time/"))
+    assert [v for t, s, v in got if t == "lr"] == [model.schedule(1), model.schedule(2)]
     assert all(np.isfinite(v) for v in model.get_current_log().values())
     assert (root / "models" / "2_G.pth").exists() and (root / "training_state" / "2.state").exists()
     assert glob.glob(str(root / "models" / "best_psnr_2_G.pth"))

@@ -111,3 +111,15 @@ def test_get_sr_and_auto_configure_match_jax():
         assert str(got.value) == str(want.value)
     assert model.netG.dcn_impl == "pallas"
     assert torch.equal(model.get_sr(lq), sr)      # a flow network has no DCN to re-dispatch
+
+
+def test_warp_block_takes_the_flow_max_offset_field():
+    """The JAX module's ``flow_max_offset`` field: the flow's bound, default 2."""
+    from glare_tpu_torch.modules.deformable_decoder import WarpBlock
+
+    assert WarpBlock(8, warp_mode="flow").flow_max_offset == 2
+    warp = WarpBlock(8, warp_mode="flow", flow_max_offset=3)
+    with torch.no_grad():
+        warp.flow_head.bias.fill_(20.0)   # tanh saturates: every flow component at the bound
+        flow = warp.flow(torch.zeros(1, 8, 4, 5))
+    assert flow.shape == (1, 4, 5, 4, 2) and torch.allclose(flow, torch.full_like(flow, 3.0))
