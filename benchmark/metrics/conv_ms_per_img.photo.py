@@ -1,0 +1,2 @@
+"""conv_ms_per_img.photo: see harness/readers.py."""
+from benchmark.harness.readers import conv_ms_per_img as read  # noqa: F401

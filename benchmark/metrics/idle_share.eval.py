@@ -1,0 +1,2 @@
+"""idle_share.eval: see harness/readers.py."""
+from benchmark.harness.readers import idle_share as read  # noqa: F401

@@ -1,0 +1,2 @@
+"""idle_share.f32: see harness/readers.py."""
+from benchmark.harness.readers import idle_share as read  # noqa: F401

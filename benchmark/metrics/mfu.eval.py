@@ -1,0 +1,2 @@
+"""mfu.eval: see harness/readers.py."""
+from benchmark.harness.readers import mfu as read  # noqa: F401

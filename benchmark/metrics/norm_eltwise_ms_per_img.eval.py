@@ -1,0 +1,2 @@
+"""norm_eltwise_ms_per_img.eval: see harness/readers.py."""
+from benchmark.harness.readers import norm_eltwise_ms_per_img as read  # noqa: F401
